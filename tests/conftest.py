@@ -18,6 +18,10 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute compile-heavy tests (dry-run integration); "
         "deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skips without a card")
 
 
 @pytest.fixture

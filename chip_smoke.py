@@ -24,14 +24,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    counting queries; the pipeline, both cohort kernels and every kernel
    must fire;
 3. the full-size triangle count is held against the host oracle;
-4. every kernel is run again on the largest inputs the main path gave it
-   and held bit-for-bit against its plain PyTorch version, and both are
-   timed with CUDA events (L2 flushed before each run).
+4. recursion path, with every launch counter set to 0 just before and read
+   just after: on the full-size graph ``Engine(backend="device")`` runs
+   ``pagerank_program(5)`` and ``sssp_program(hub)`` cold and warm (as
+   in phase 2), held against ``Engine(backend="numpy")`` (SSSP exact,
+   PageRank within relative 1e-4) with one device fixpoint, no host round
+   and as many device rounds as the oracle's host rounds, and prints the
+   wall split between each base rule, the fixpoint's host preparation and
+   its device loop;
+   ``recursion.pagerank(iters=5, backend=DeviceBackend())`` on
+   ``powerlaw_graph(2_000_000, 20, 2.2, seed=0)`` (37,230,744 directed
+   edges) through ``spmv_ell`` (5 launches, ``spmv.ell_kernel`` 5), held
+   against ``pagerank_np``; ``recursion.sssp`` on the full-size graph,
+   exact against ``sssp_np``, and ``recursion.fixpoint`` with a tolerance
+   (min-plus hop distances, one host read per 8 steps) equal to it;
+5. every kernel is run again on the largest inputs its path gave it and
+   held against its plain PyTorch version — bit for bit, or for
+   ``spmv_ell`` within 1e-5 of each vertex's absolute sum, its two
+   launches bit-identical — and both are timed with CUDA events (L2
+   flushed before each run); ``spmv_ell`` also beside one
+   ``torch.sparse`` CSR product (``library_ms``, used nowhere in the
+   port).
 
 The last three lines of standard output are the kernel table (JSON), the
 card's ``name, power.limit`` from nvidia-smi, and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of jax or ``repro``.
 """
+import collections
 import json
 import subprocess
 import sys
@@ -44,8 +63,19 @@ SRC = ROOT / "src"
 
 FULL_GRAPH = (200_000, 20, 2.2)
 SMALL_GRAPH = (2000, 12, 2.0)
+LARGE_GRAPH = (2_000_000, 20, 2.2)   # between Patents and LiveJournal
+PR_ITERS = 5
+# PageRank on the card against a host answer: float32 sums over hub rows
+# of up to ~10^5 terms, in an order that CUDA's atomic index_add_ changes
+# from run to run (the engine) or that differs from a float64 oracle's
+# (recursion.pagerank); relative error, largest over the vertices
+PR_REL_LIMIT = 1e-4
+# spmv_ell against its plain version: |y - ref| per vertex over the
+# vertex's absolute sum (the same sums, taken in another order)
+ELL_REL_LIMIT = 1e-5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
+F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "frontier_fill": ("src/repro_torch/csrc/frontier_fill.cu",
@@ -58,6 +88,10 @@ KERNELS = {
                          "src/repro/kernels/bitset_intersect/kernel.py:45"),
     "uint_intersect": ("src/repro_torch/csrc/uint_intersect.cu",
                        "src/repro/kernels/uint_intersect/kernel.py:50"),
+}
+RECURSION_KERNELS = {
+    "spmv_ell": ("src/repro_torch/csrc/spmv_ell.cu",
+                 "src/repro/kernels/spmv_ell/kernel.py:38"),
 }
 
 
@@ -149,6 +183,186 @@ def profile_query(eng, q, cache_cls, torch):
             log(f"[profile] host {line.strip()[:150]}")
 
 
+class WallSplit:
+    """Wrap functions to add up their wall time by label (each wrapped
+    call ends in a host transfer, so no extra synchronisation)."""
+
+    def __init__(self):
+        self.walls = collections.defaultdict(float)
+        self.undo = []
+
+    def wrap(self, obj, attr, label):
+        """``label`` is a string or a function of the call's arguments."""
+        orig = getattr(obj, attr)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kw)
+            finally:
+                key = label(*args, **kw) if callable(label) else label
+                self.walls[key] += time.perf_counter() - t0
+
+        setattr(obj, attr, timed)
+        self.undo.append((obj, attr, orig))
+
+    def restore(self):
+        for obj, attr, orig in reversed(self.undo):
+            setattr(obj, attr, orig)
+
+
+def rel_err(got, want):
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def recursion_path(src, dst, g, torch):
+    """Phase 4: the recursion entry points on the card.  Returns the
+    launch counts of this path and the large graph (for the library
+    yardstick of the kernel phase)."""
+    import numpy as np
+
+    from repro_torch.core import recursion
+    from repro_torch.core import workload as W
+    from repro_torch.core.backend import DeviceBackend
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.executor import BagResultCache
+    from repro_torch.core.semiring import MIN_PLUS
+    from repro_torch.data.graphs import powerlaw_graph
+    from repro_torch.kernels import common
+
+    hub = int(np.argmax(g.degrees))
+    programs = (("PAGERANK", W.pagerank_program(PR_ITERS), "naive"),
+                ("SSSP", W.sssp_program(hub), "seminaive"))
+    t0 = time.perf_counter()
+    g2 = powerlaw_graph(*LARGE_GRAPH, seed=0)
+    log(f"[recursion] powerlaw_graph{LARGE_GRAPH}: {g2.m} directed edges, "
+        f"made in {time.perf_counter() - t0:.1f} s")
+
+    common.reset_launches()
+    eng = Engine(backend="device")
+    eng.load_edges("Edge", src, dst)
+    split = WallSplit()
+    split.wrap(eng, "_eval_rule",
+               lambda rule, *a, **kw: f"base rule {rule.head.rel}")
+    split.wrap(eng, "_eval_recursive", "fixpoint")
+    split.wrap(recursion, "naive_device_fixpoint", "fixpoint device loop")
+    split.wrap(recursion, "seminaive_device_fixpoint",
+               "fixpoint device loop")
+    device_res, walls = {}, {}
+    for name, q, strategy in programs:
+        for run in ("cold", "warm"):
+            # warm: plans and uploads cached, bag results not
+            eng.bag_cache = BagResultCache()
+            before = dict(eng.dispatch_summary())
+            split.walls.clear()
+            t0 = time.perf_counter()
+            res = eng.query(q)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = eng.dispatch_summary()
+            delta = {k: after.get(k, 0) - before.get(k, 0) for k in after
+                     if k.startswith("recursion.")}
+            walls[f"{name}.{run}"] = wall
+            parts = dict(split.walls)
+            parts["base rules"] = sum(v for k, v in parts.items()
+                                      if k.startswith("base rule "))
+            parts["fixpoint host preparation"] = (
+                parts.get("fixpoint", 0.0)
+                - parts.get("fixpoint device loop", 0.0))
+            log(f"[recursion] {name} {run}: {res.num_rows} rows in {wall} s; "
+                f"split {json.dumps(parts, sort_keys=True)}; "
+                f"{json.dumps(delta, sort_keys=True)}; plan "
+                f"{json.dumps([m['recursion'] for m in eng.plan_metadata() if 'recursion' in m])}")
+            check(delta.get("recursion.device_fixpoints", 0) == 1,
+                  f"{name} {run}: not one device fixpoint")
+            check(delta.get("recursion.host_rounds", 0) == 0
+                  and delta.get("recursion.host_trie_rebuilds", 0) == 0,
+                  f"{name} {run}: a round ran on the host")
+            check(eng.plan_metadata()[-1]["recursion"]["strategy"]
+                  == strategy, f"{name}: not {strategy}")
+        device_res[name] = (res, delta["recursion.device_rounds"])
+    split.restore()
+    del eng
+
+    for name, q, _ in programs:
+        host = Engine(backend="numpy")
+        host.load_edges("Edge", src, dst)
+        t0 = time.perf_counter()
+        want = host.query(q)
+        host_wall = time.perf_counter() - t0
+        got, rounds = device_res[name]
+        host_rounds = host.dispatch_summary()["recursion.host_rounds"]
+        check(np.array_equal(got.columns["x"], want.columns["x"]),
+              f"{name}: keys differ from the host engine")
+        check(rounds == host_rounds, f"{name}: {rounds} device rounds, "
+                                     f"{host_rounds} on the host")
+        if name == "SSSP":
+            check(np.array_equal(got.annotation, want.annotation),
+                  "SSSP differs from the host engine")
+            log(f"[recursion] SSSP from {hub}: {got.num_rows} reached, "
+                f"{rounds} rounds; host engine {host_wall} s, equal")
+        else:
+            err = rel_err(got.annotation, want.annotation)
+            log(f"[recursion] PAGERANK: host engine {host_wall} s, "
+                f"{host_rounds} rounds; largest relative error "
+                f"{err} (limit {PR_REL_LIMIT})")
+            check(err <= PR_REL_LIMIT, f"PageRank relative error {err}")
+        del host
+    log(f"[recursion] walls_s {json.dumps(walls)}")
+
+    b = DeviceBackend()
+    t0 = time.perf_counter()
+    ranks = recursion.pagerank(g2, iters=PR_ITERS, backend=b)
+    wall = time.perf_counter() - t0
+    err = rel_err(ranks, recursion.pagerank_np(g2, iters=PR_ITERS))
+    log(f"[recursion] recursion.pagerank ({g2.n} vertices, {g2.m} edges): "
+        f"{wall} s with packing and uploads; largest relative error vs "
+        f"pagerank_np {err} (limit {PR_REL_LIMIT}); spmv.ell_kernel "
+        f"{b.stats['spmv.ell_kernel']}")
+    check(err <= PR_REL_LIMIT, f"recursion.pagerank relative error {err}")
+    check(b.stats["spmv.ell_kernel"] == PR_ITERS, "spmv.ell_kernel != iters")
+    check(common.LAUNCHES["spmv_ell"] == PR_ITERS,
+          f"spmv_ell launched {common.LAUNCHES['spmv_ell']} times, not "
+          f"{PR_ITERS}")
+
+    t0 = time.perf_counter()
+    dist = recursion.sssp(g, hub)
+    wall = time.perf_counter() - t0
+    check(np.array_equal(dist, recursion.sssp_np(g, hub)),
+          "recursion.sssp differs from sssp_np")
+    log(f"[recursion] recursion.sssp from {hub}: "
+        f"{int(np.isfinite(dist).sum())} reached in {wall} s; sssp_np equal")
+
+    # recursion.fixpoint with a tolerance: hop distances by min-plus
+    # relaxation (order-free, so exact); an unreached vertex holds n, not
+    # inf, so the differential stays finite
+    b = DeviceBackend()
+    row = torch.as_tensor(recursion.csr_row_ids(g), device=b.device)
+    col = torch.as_tensor(g.neighbors, device=b.device)
+    ones = torch.ones(g.m, dtype=torch.float32, device=b.device)
+    d0 = torch.full((g.n,), float(g.n), device=b.device)
+    d0[hub] = 0.0
+    t0 = time.perf_counter()
+    d = recursion.fixpoint(
+        lambda x: torch.minimum(x, recursion.semiring_spmv(
+            MIN_PLUS, g.n, row, col, ones, x)), d0, tol=0.0, backend=b)
+    hops = common.host_get(d)
+    wall = time.perf_counter() - t0
+    hops[hops == g.n] = np.inf
+    check(np.array_equal(hops, dist), "recursion.fixpoint hop distances "
+                                      "differ from sssp")
+    steps, syncs = b.stats["fixpoint.steps"], b.stats["fixpoint.host_syncs"]
+    check(syncs == -(-steps // 8), f"fixpoint: {syncs} host reads for "
+                                   f"{steps} steps")
+    log(f"[recursion] recursion.fixpoint (tol=0, min-plus) from {hub}: "
+        f"{steps} steps, {syncs} host reads, {wall} s; equal to sssp")
+    launches = dict(common.LAUNCHES)
+    log(f"[recursion] launches {json.dumps(launches)}")
+    return launches, g2
+
+
 def load(eng, src, dst, aliases):
     eng.load_edges("Edge", src, dst)
     for a in aliases:
@@ -178,6 +392,8 @@ def main():
         bitset_and_popcount_ref
     from repro_torch.kernels.frontier_fill import ops as fill_ops
     from repro_torch.kernels.frontier_fill.ref import fill_ref, fold_ref
+    from repro_torch.kernels.spmv_ell import ops as ell_ops
+    from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
     from repro_torch.kernels.uint_intersect import ops as uint_ops
     from repro_torch.kernels.uint_intersect.ref import \
         intersect_count_csr_ref
@@ -284,7 +500,16 @@ def main():
           f"device triangle count {results['TRIANGLE_COUNT']} != host {want}")
     del host
 
-    # ---------------------------------- 4. kernels against plain versions
+    # ---------------------------------------------- 4. recursion path
+    ell_capture = Capture(ell_ops, "spmv_ell",
+                          lambda c, v, rp, x: int(c.shape[0]))
+    rec_launches, g2 = recursion_path(src, dst, g, torch)
+    ell_capture.restore()
+    captures["spmv_ell"] = ell_capture
+    for name in RECURSION_KERNELS:
+        check(rec_launches.get(name, 0) > 0, f"kernel {name} never launched")
+
+    # ---------------------------------- 5. kernels against plain versions
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def time_ms(fn, reps):
@@ -325,8 +550,10 @@ def main():
         return out if isinstance(out, tuple) else (out,)
 
     rows = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in {**KERNELS, **RECURSION_KERNELS}.items():
         args = captures[name].args
+        library_ms = None
+        bound_ops_per_s = INT32_OPS_PER_S
         check(args is not None, f"no captured call of {name}")
         if name == "frontier_fill":
             total_c, offs, lo0, seed, probes, start, n = args
@@ -366,6 +593,23 @@ def main():
             ops = int(pa.shape[0]) * w * 3
             shape = (f"pairs={int(pa.shape[0])} blocks={int(words.shape[0])}"
                      f" words={w} rows_read={rows_read}")
+        elif name == "spmv_ell":
+            cols, vals, row_ptr, x = args
+            kern = lambda: ell_ops.spmv_ell(*args)                # noqa: E731
+            plain = lambda: spmv_ell_ref(*args)                   # noqa: E731
+            n_out = int(row_ptr.shape[0]) - 1
+            # the work is the graph's entries, not the packing's padding
+            # (weight-0 slots): (col, val) per entry, x, y and row_ptr once
+            nnz = int((vals != 0).sum())
+            moved = 8 * nnz + nbytes(row_ptr, x) + n_out * 4
+            ops = 2 * nnz
+            bound_ops_per_s = F32_OPS_PER_S
+            padded = nbytes(cols, vals, row_ptr, x) + n_out * 4
+            shape = (f"ell_rows={int(cols.shape[0])} width="
+                     f"{int(cols.shape[1])} slots={cols.numel()} "
+                     f"entries={nnz} outputs={n_out}; bound with the "
+                     f"padding read {padded / HBM_BYTES_PER_S * 1e6:.2f} "
+                     f"us ({padded} bytes)")
         else:
             offs, nbr, u, v = args
             kern = lambda: uint_ops.intersect_count_csr(*args)    # noqa: E731
@@ -382,24 +626,55 @@ def main():
                        .long()).sum()) * 4
             shape = (f"pairs={int(u.shape[0])} endpoints={int(ends.numel())}"
                      f" max_len={int(large.max())}")
-        err = max_err(flat(name, kern()), flat(name, plain()))
-        check(err == 0, f"{name} differs from its plain version (max |err| "
-                        f"{err})")
+        if name == "spmv_ell":
+            got, want = kern(), plain()
+            check(torch.equal(got, kern()), "spmv_ell: two launches differ")
+            abs_sum = spmv_ell_ref(cols, vals.abs(), row_ptr, x.abs())
+            diff = (got - want).abs()
+            err = float(diff.max())
+            rel = float((diff / abs_sum.clamp_min(1e-30)).max())
+            check(rel <= ELL_REL_LIMIT,
+                  f"spmv_ell differs from its plain version: {rel} of the "
+                  f"absolute sum (limit {ELL_REL_LIMIT})")
+            a = torch.sparse_csr_tensor(
+                torch.as_tensor(g2.offsets, device="cuda"),
+                torch.as_tensor(g2.neighbors.astype(np.int64),
+                                device="cuda"),
+                torch.ones(g2.m, dtype=torch.float32, device="cuda"),
+                size=(g2.n, g2.n))
+            check(n_out == g2.n, "spmv_ell's largest call is not the "
+                                 "large graph's")
+            lib = torch.mv(a, x)
+            lib_rel = float(((lib - want).abs()
+                             / abs_sum.clamp_min(1e-30)).max())
+            library_ms = time_ms(lambda: torch.mv(a, x), 20)
+            shape += (f"; max |err| {err} = {rel} of the absolute sum "
+                      f"(limit {ELL_REL_LIMIT}), two launches bit-identical;"
+                      f" torch.sparse {library_ms:.4f} ms ({lib_rel} of "
+                      "the absolute sum)")
+            del a, lib
+        else:
+            err = max_err(flat(name, kern()), flat(name, plain()))
+            check(err == 0, f"{name} differs from its plain version (max "
+                            f"|err| {err})")
+            shape += "; bit-equal"
         ms = time_ms(kern, 20)
         plain_ms = time_ms(plain, 5)
         b_bytes = moved / HBM_BYTES_PER_S * 1e3
-        b_ops = ops / INT32_OPS_PER_S * 1e3
+        b_ops = ops / bound_ops_per_s * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": int(launches.get(name, 0)),
+            "replaces": replaces,
+            "launches": int(launches.get(name, 0)
+                            + rec_launches.get(name, 0)),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "library_ms": None,
+            "library_ms": library_ms,
         })
         log(f"[kernel] {name}: {shape}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {max(b_bytes, b_ops) * 1e3:.2f} us "
-            f"({moved} bytes), bit-equal")
+            f"({moved} bytes)")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

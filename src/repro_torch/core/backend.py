@@ -40,7 +40,8 @@ from repro_torch.core import intersect as I
 from repro_torch.core.layouts import engine_store_for
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels.bitset_intersect import ops as bitset_ops
-from repro_torch.kernels.common import IDX, IDX_NP, host_get
+from repro_torch.kernels.common import (IDX, IDX_NP, default_device,
+                                        host_get)
 from repro_torch.kernels.frontier_fill import ops as ff_ops
 from repro_torch.kernels.uint_intersect import ops as uint_ops
 
@@ -179,12 +180,7 @@ class DeviceBackend(ExecBackend):
 
     def __init__(self, device=None,
                  uint_max_len: int = UINT_KERNEL_MAX_LEN):
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "DeviceBackend needs a CUDA device; pass device='cpu' to "
-                "run the kernels' plain versions on the host")
-        super().__init__(device)
+        super().__init__(default_device(device, "DeviceBackend"))
         self._uint_max_len = uint_max_len
         # engine-lifetime pipeline-cap feedback: bag shape -> the
         # counting pass's measured per-variable totals from an
@@ -266,7 +262,7 @@ class DeviceBackend(ExecBackend):
         raise NotImplementedError(
             "the materializing bitset intersection needs the materialize "
             "kernel, which this port does not have yet (ROADMAP: queue 1 "
-            "item 3, materialize with pair_store)")
+            "item 2, materialize with pair_store)")
 
     # ---------------------------------------------- zero-sync pipeline
     # The frontier stays device-resident between attribute extensions:
@@ -749,11 +745,12 @@ def _fused_probe(values_t, lo_t, hi_t, queries):
 # -------------------------------------------------------------- selection
 def make_backend(spec=None, device=None) -> ExecBackend:
     """Resolve ``spec`` (instance | "numpy" | "device" | None) to a
-    backend.  None is the host oracle; ``device`` places a named
-    DeviceBackend (default ``cuda``)."""
+    backend.  None is the device backend, as "device" is: it runs on
+    ``device``, ``cuda`` unless the caller names another, and raises
+    without a card.  "numpy" is the host oracle."""
     if isinstance(spec, ExecBackend):
         return spec
-    spec = "numpy" if spec is None else str(spec).lower()
+    spec = "device" if spec is None else str(spec).lower()
     if spec in ("numpy", "host"):
         return NumpyBackend()
     if spec == "device":

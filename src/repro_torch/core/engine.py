@@ -11,39 +11,45 @@ together:
   3. execution engine — vectorized worst-case-optimal joins with
      layout/algorithm decisions made from data characteristics.
 
-**Backend selection**: ``Engine(backend="numpy")`` (the default) is the
-host oracle; ``Engine(backend="device")`` keeps trie levels
-device-resident, runs each bag's extension chain on the device with one
-closing transfer, and dispatches terminal-fold intersections to the
-layout-cohort CUDA kernels.  The device backend runs on ``cuda`` unless
-``device=`` names another device (``device="cpu"`` runs every kernel's
-plain PyTorch version — the tests use it).  One backend instance lives per
-Engine, so multi-rule programs reuse its device-resident uploads;
-``Engine.dispatch_summary()`` reports which kernel handled each
-intersection.
+Multi-rule programs evaluate in order; Kleene-star rules run **naive**
+recursion (fixed iterations / float tolerance — PageRank) or **seminaive**
+recursion, selected automatically "if the aggregation is monotonically
+increasing or decreasing with a MIN or MAX operator" (paper Section 3.3 —
+SSSP), in which case only the delta relation is re-joined each round.
 
-Recursive (Kleene-star) rules are not part of this port yet.
+**Backend selection**: ``Engine()`` and ``Engine(backend="device")`` keep
+trie levels device-resident, run each bag's extension chain on the device
+with one closing transfer, dispatch terminal-fold intersections to the
+layout-cohort CUDA kernels, and run a recursive rule whose body is a
+semiring SpMV as one device fixpoint (``core.recursion``).  The device
+backend runs on ``cuda`` and raises without a card unless ``device=``
+names another device (``device="cpu"`` runs every kernel's plain PyTorch
+version — the tests use it).  ``Engine(backend="numpy")`` is the host
+oracle.  One backend instance lives per Engine, so multi-rule and
+recursive programs reuse its device-resident uploads;
+``Engine.dispatch_summary()`` reports which kernel handled each
+intersection and how each fixpoint ran.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core import codegen as codegen_mod
 from repro_torch.core import plan_ir
 from repro_torch.core import plan_search as plan_search_mod
+from repro_torch.core import recursion as recursion_mod
 from repro_torch.core.backend import ExecBackend, make_backend
 from repro_torch.core.compile import QueryPlan, compile_rule, parameterize
-from repro_torch.core.datalog import AggRef, Param, Rule, eval_expr, parse
+from repro_torch.core.datalog import (AggRef, Num, Param, Rule, ScalarRef,
+                                      Var, eval_expr, parse)
 from repro_torch.core.executor import BagResultCache, Catalog, Executor
 from repro_torch.core.gj import GJResult
+from repro_torch.core.semiring import AGG_TO_SEMIRING, MAX_MIN, MIN_PLUS, SUM_F32
 from repro_torch.core.statistics import StatisticsCatalog
 from repro_torch.core.trie import Trie
-
-RECURSION_TODO = ("recursive rules are not ported yet "
-                  "(ROADMAP, queue 1: recursion with spmv_ell)")
 
 
 @dataclasses.dataclass
@@ -68,6 +74,11 @@ class QueryResult:
     def scalar(self):
         assert not self.vars, f"not a scalar result: vars={self.vars}"
         return self.annotation
+
+    def as_dict(self) -> Dict[int, object]:
+        assert len(self.vars) == 1
+        keys = self.columns[self.vars[0]]
+        return dict(zip(keys.tolist(), self.annotation.tolist()))
 
 
 @dataclasses.dataclass
@@ -112,8 +123,8 @@ class Engine:
         self.catalog = Catalog()
         self.use_ghd = use_ghd
         self.use_codegen = use_codegen
-        # backend: ExecBackend | "numpy" | "device" | None (numpy);
-        # ``device`` places a named device backend (default cuda)
+        # backend: ExecBackend | "numpy" | "device" | None (device);
+        # ``device`` places the device backend (default cuda)
         self.backend: ExecBackend = make_backend(backend, device=device)
         # cost-based GHD + attribute-order search (core.plan_search);
         # False pins the seed appearance-order plan
@@ -149,6 +160,13 @@ class Engine:
         self.catalog.add(name, t)
         return t
 
+    def load_table(self, name: str, columns: Sequence[np.ndarray],
+                   annotation=None):
+        attrs = tuple(f"c{i}" for i in range(len(columns)))
+        t = Trie.build(name, attrs, list(columns), annotation=annotation)
+        self.catalog.add(name, t)
+        return t
+
     def alias(self, name: str, target: str):
         self.catalog.alias(name, target)
 
@@ -180,12 +198,15 @@ class Engine:
     def query(self, text: str) -> QueryResult:
         """Run a datalog program; returns the result of the LAST head."""
         prog = parse(text)
-        if any(rule.recursion is not None for rule in prog.rules):
-            raise NotImplementedError(RECURSION_TODO)
         self._program_metadata = []
         result: Optional[QueryResult] = None
         for rule in prog.rules:
-            result = self._eval_rule(rule, materialize=True)
+            if rule.recursion is not None:
+                result = self._eval_recursive(rule)
+            else:
+                # every head is materialized: later rules read it by
+                # name, and a star rule's base rule seeds its fixpoint
+                result = self._eval_rule(rule, materialize=True)
         assert result is not None, "empty program"
         return result
 
@@ -198,7 +219,7 @@ class Engine:
             raise ValueError("prepare() takes exactly one rule")
         rule = prog.rules[0]
         if rule.recursion is not None:
-            raise NotImplementedError(RECURSION_TODO)
+            raise ValueError("prepare() does not support recursive rules")
         rule_p, defaults = parameterize(rule)
         self._compile(rule_p)
         return PreparedQuery(self, rule_p, defaults)
@@ -213,7 +234,10 @@ class Engine:
         ``extend.closing_syncs``), pipeline launches and fill chunks,
         device uploads, statistics-driven layout routing
         (``layout.stats_driven`` / ``layout.threshold_bits``),
-        engine-lifetime bag-cache traffic and reorder-index builds."""
+        engine-lifetime bag-cache traffic, reorder-index builds, and the
+        recursion sync discipline (``recursion.device_rounds`` /
+        ``recursion.device_fixpoints`` / ``recursion.host_reads`` vs
+        ``recursion.host_rounds`` / ``recursion.host_trie_rebuilds``)."""
         out = self.backend.dispatch_summary()
         out["bag_cache.hits"] = self.bag_cache.hits
         out["bag_cache.misses"] = self.bag_cache.misses
@@ -369,6 +393,305 @@ class Engine:
                        annotation=res.annotation)
         self.catalog.add(name, t)
 
+    # ------------------------------------------------------------ recursion
+    def _eval_recursive(self, rule: Rule) -> QueryResult:
+        agg = rule.agg
+        sr = AGG_TO_SEMIRING[agg.op] if agg is not None else None
+        seminaive = sr in (MIN_PLUS, MAX_MIN)
+        if seminaive:
+            return self._seminaive(rule, sr)
+        return self._naive(rule)
+
+    # ----------------------------------------- device-resident fast path
+    def _spmv_shape(self, rule: Rule):
+        """Recognize the semiring-SpMV recursion shape the device loops
+        execute: head ``Rec(h)``, body = ONE binary non-recursive atom
+        over {h, r} + the recursive atom ``Rec(r)`` + optional unary
+        non-recursive atoms ``A_i(r)``, aggregating over ``r``.  Returns
+        ``(edge_atom, unary_atoms, h, r)`` or None (host loop)."""
+        if len(rule.head.keyvars) != 1:
+            return None
+        h = rule.head.keyvars[0]
+        agg = rule.agg
+        if agg is None or agg.op == "count" or agg.arg in ("*", h):
+            return None
+        r = agg.arg
+        name = self.catalog.resolve(rule.head.rel)
+        rec_atoms = [a for a in rule.body
+                     if self.catalog.resolve(a.rel) == name]
+        if len(rec_atoms) != 1 or rec_atoms[0].terms != (Var(r),):
+            return None
+        others = [a for a in rule.body if a is not rec_atoms[0]]
+        if any(not isinstance(t, Var) for a in others for t in a.terms):
+            return None
+        binary = [a for a in others if len(a.terms) == 2]
+        unary = [a for a in others if len(a.terms) == 1]
+        if len(binary) != 1 or len(binary) + len(unary) != len(others):
+            return None
+        e = binary[0]
+        if set(e.vars) != {h, r} or e.rel not in self.catalog \
+                or self.catalog.get(e.rel).arity != 2:
+            return None
+        for a in unary:
+            if a.vars != (r,) or a.rel not in self.catalog \
+                    or self.catalog.get(a.rel).arity != 1:
+                return None
+        return e, unary, h, r
+
+    def _recursion_expr_fn(self, rule: Rule):
+        """The annotation-expression applier with its scalars as Python
+        floats, or None when the expression references something the
+        device loop cannot bake in (e.g. a non-scalar "scalar"
+        relation)."""
+        names = _expr_scalar_names(rule.agg_expr)
+        scalars = {}
+        for nm in names:
+            v = self.catalog.scalars.get(nm)
+            if v is None or np.ndim(v) != 0:
+                return None
+            scalars[nm] = float(v)
+        return recursion_mod.ExprFn(rule.agg_expr, scalars)
+
+    def _record_device_recursion(self, rule: Rule, strategy: str,
+                                 rounds: int):
+        self.backend.stats["recursion.device_fixpoints"] += 1
+        self.backend.stats["recursion.device_rounds"] += int(rounds)
+        self._program_metadata.append({
+            "head": rule.head.rel,
+            "recursion": {"mode": "device", "strategy": strategy,
+                          "rounds": int(rounds)},
+            "bags": [],
+            "plan_search": {"enabled": False},
+            "est_error": {"n_bags": 0, "geo_mean_q": None},
+        })
+
+    def _seminaive_device(self, rule: Rule, sr) -> Optional[QueryResult]:
+        """Seminaive recursion as ONE device fixpoint (fixed-shape masked
+        delta over the vertex domain, mirroring ``recursion.sssp``)
+        instead of a host delta-trie rebuild per round.  Returns None when
+        the backend is the host oracle or the rule/data fall outside the
+        SpMV shape — the host loop then runs, as in the reference."""
+        if self.backend.name != "device":
+            return None
+        shape = self._spmv_shape(rule)
+        if shape is None or shape[1]:   # unary extras: host loop
+            return None
+        e, _unary, h, r = shape
+        apply_expr = self._recursion_expr_fn(rule)
+        if apply_expr is None:
+            return None
+        name = rule.head.rel
+        base = self.catalog.get(name)
+        keys0 = base.levels[0].values.astype(np.int64)
+        if base.annotation is None or len(keys0) == 0:
+            return None
+        ann0 = np.asarray(base.annotation, dtype=np.float64)
+        zero = float(np.asarray(sr.zero))
+        if not np.all(ann0 != zero):
+            # a base tuple annotated with the semiring zero would be
+            # indistinguishable from "underived" in the masked state
+            return None
+        src, dst, eann = self.catalog.get(e.rel).edge_view()
+        gather_v, scatter_v = (src, dst) if e.vars == (r, h) else (dst, src)
+        n = int(max(keys0.max(initial=0),
+                    gather_v.max(initial=0), scatter_v.max(initial=0))) + 1
+        max_rounds = (int(rule.recursion.value)
+                      if rule.recursion.kind == "iterations" else 1 << 30)
+        keys, ann, rounds = recursion_mod.seminaive_device_fixpoint(
+            sr, apply_expr, gather_v, scatter_v, eann, n, keys0, ann0,
+            max_rounds, self.backend)
+        self._record_device_recursion(rule, "seminaive", rounds)
+        keyvars = tuple(rule.head.keyvars)
+        keys32 = keys.astype(np.int32)
+        self.catalog.add(name, Trie.build(name, keyvars, [keys32],
+                                          annotation=ann))
+        return QueryResult(keyvars, {keyvars[0]: keys32}, ann)
+
+    def _naive_device(self, rule: Rule, prev_keys: np.ndarray,
+                      iters: Optional[int], tol: Optional[float],
+                      max_iters: int) -> Optional[QueryResult]:
+        """Naive recursion (every annotation rewritten every round) as ONE
+        device fixpoint over the FIXED head key set: memberships and
+        non-recursive annotation factors are resolved once on host, then
+        every round is a gather → ⊗-chain → segment-⨁ → expression
+        rewrite with no per-round host read (a tolerance is checked on
+        the device, its flag read once per block of rounds)."""
+        if self.backend.name != "device":
+            return None
+        agg = rule.agg
+        if agg is None or AGG_TO_SEMIRING.get(agg.op) is not SUM_F32:
+            return None
+        shape = self._spmv_shape(rule)
+        if shape is None:
+            return None
+        e, unary, h, r = shape
+        sr = SUM_F32
+        apply_expr = self._recursion_expr_fn(rule)
+        if apply_expr is None:
+            return None
+        name = rule.head.rel
+        base = self.catalog.get(name)
+        if base.annotation is None or len(prev_keys) == 0:
+            return None
+        keys = np.asarray(prev_keys, dtype=np.int64)
+        ann0 = np.asarray(base.annotation, dtype=np.float64)
+        src, dst, eann = self.catalog.get(e.rel).edge_view()
+        gather_v, scatter_v = (src, dst) if e.vars == (r, h) else (dst, src)
+
+        def positions(sorted_keys, queries):
+            if len(sorted_keys) == 0:
+                return (np.zeros(len(queries), np.int64),
+                        np.zeros(len(queries), bool))
+            pos = np.searchsorted(sorted_keys, queries)
+            pos = np.clip(pos, 0, len(sorted_keys) - 1)
+            return pos, sorted_keys[pos] == queries
+
+        out_idx, valid = positions(keys, scatter_v)
+        rec_idx, ok = positions(keys, gather_v)
+        valid = valid & ok
+        # ⊗-factors in body-atom order (exactly the fold's mul order)
+        factor_kinds: List[str] = []
+        gathers: List[np.ndarray] = []
+        for a in rule.body:
+            if self.catalog.resolve(a.rel) == self.catalog.resolve(name):
+                factor_kinds.append("rec")
+            elif len(a.terms) == 2:
+                if eann is not None:
+                    factor_kinds.append("static")
+                    gathers.append(np.asarray(eann))
+            else:
+                t = self.catalog.get(a.rel)
+                upos, ok = positions(
+                    t.levels[0].values.astype(np.int64), gather_v)
+                valid = valid & ok
+                if t.annotation is not None:
+                    factor_kinds.append("static")
+                    gathers.append(np.asarray(t.annotation)[upos])
+        out_idx = out_idx[valid]
+        rec_idx = rec_idx[valid]
+        factor_anns = [g[valid] for g in gathers]
+        if iters is None and tol is None:
+            iters = max_iters   # bare-star naive: fixed round budget
+        ann, rounds = recursion_mod.naive_device_fixpoint(
+            sr, apply_expr, out_idx, rec_idx, tuple(factor_kinds),
+            factor_anns, len(keys), ann0, iters, tol, max_iters,
+            self.backend)
+        self._record_device_recursion(rule, "naive", rounds)
+        keyvars = tuple(rule.head.keyvars)
+        keys32 = keys.astype(np.int32)
+        self.catalog.add(name, Trie.build(name, keyvars, [keys32],
+                                          annotation=ann))
+        return QueryResult(keyvars, {keyvars[0]: keys32}, ann)
+
+    def _naive(self, rule: Rule) -> QueryResult:
+        """Naive recursion: re-evaluate the body against the full current
+        relation each round (paper: used for PageRank)."""
+        rec = rule.recursion
+        iters = int(rec.value) if rec.kind == "iterations" else None
+        tol = float(rec.value) if rec.kind == "tolerance" else None
+        max_iters = iters if iters is not None else 10_000
+        name = rule.head.rel
+        keyvars = tuple(rule.head.keyvars)
+        prev = self.catalog.get(name)
+        prev_keys = prev.levels[0].values.copy()
+        prev_ann = (prev.annotation.copy() if prev.annotation is not None
+                    else None)
+        assert len(keyvars) == 1, "naive recursion implemented for unary heads"
+
+        fast = self._naive_device(rule, prev_keys, iters, tol, max_iters)
+        if fast is not None:
+            return fast
+
+        default = None
+        res = None
+        for it in range(max_iters):
+            self.backend.stats["recursion.host_rounds"] += 1
+            res = self._eval_rule(rule_without_star(rule), materialize=False)
+            if default is None:
+                default = float(eval_expr(rule.agg_expr, np.zeros(1),
+                                          self.catalog.scalars)[0]) \
+                    if rule.agg_expr is not None else 0.0
+            # keys persist across iterations (head keys = initialized keys);
+            # missing keys fall back to expr(aggregate == zero).
+            new_ann = np.full(len(prev_keys), default, dtype=np.float64)
+            if res.num_rows and res.vars:
+                lookup = np.searchsorted(prev_keys, res.columns[keyvars[0]])
+                lookup = np.clip(lookup, 0, len(prev_keys) - 1)
+                hit = prev_keys[lookup] == res.columns[keyvars[0]]
+                new_ann[lookup[hit]] = np.asarray(res.annotation)[hit]
+            if tol is not None and prev_ann is not None:
+                if float(np.max(np.abs(new_ann - prev_ann))) <= tol:
+                    prev_ann = new_ann
+                    break
+            prev_ann = new_ann
+            self.backend.stats["recursion.host_trie_rebuilds"] += 1
+            t = Trie.build(name, keyvars, [prev_keys], annotation=new_ann)
+            self.catalog.add(name, t)
+        t = Trie.build(name, keyvars, [prev_keys], annotation=prev_ann)
+        self.catalog.add(name, t)
+        return QueryResult(keyvars, {keyvars[0]: prev_keys}, prev_ann)
+
+    def _seminaive(self, rule: Rule, sr) -> QueryResult:
+        """Seminaive recursion: only the delta (tuples whose annotation
+        improved last round) re-joins (paper: used for SSSP)."""
+        name = rule.head.rel
+        keyvars = tuple(rule.head.keyvars)
+        assert len(keyvars) == 1, "seminaive implemented for unary heads"
+        fast = self._seminaive_device(rule, sr)
+        if fast is not None:
+            return fast
+        base = self.catalog.get(name)
+        keys = base.levels[0].values.copy().astype(np.int64)
+        ann = np.asarray(base.annotation, dtype=np.float64).copy()
+
+        rec_atoms = [a for a in rule.body if a.rel == name]
+        assert len(rec_atoms) == 1, "exactly one recursive atom supported"
+        delta_name = f"@delta_{name}"
+        sub = rewrite_atom(rule_without_star(rule), name, delta_name)
+
+        delta_keys, delta_ann = keys, ann
+        zero = float(np.asarray(sr.zero))
+        max_rounds = int(rule.recursion.value) if \
+            rule.recursion.kind == "iterations" else 1 << 30
+
+        rounds = 0
+        while len(delta_keys) and rounds < max_rounds:
+            rounds += 1
+            self.backend.stats["recursion.host_rounds"] += 1
+            self.backend.stats["recursion.host_trie_rebuilds"] += 1
+            self.catalog.add(delta_name, Trie.build(
+                delta_name, keyvars, [delta_keys.astype(np.int32)],
+                annotation=delta_ann))
+            res = self._eval_rule(sub, materialize=False)
+            if not res.num_rows or not res.vars:
+                break
+            cand_keys = np.asarray(res.columns[sub.head.keyvars[0]],
+                                   dtype=np.int64)
+            cand_ann = np.asarray(res.annotation, dtype=np.float64)
+            # merge candidates into (keys, ann)
+            all_keys = np.concatenate([keys, cand_keys])
+            all_ann = np.concatenate([ann, cand_ann])
+            uniq, inv = np.unique(all_keys, return_inverse=True)
+            merged = np.full(len(uniq), zero, dtype=np.float64)
+            if sr.name == "min_plus":
+                np.minimum.at(merged, inv, all_ann)
+            else:
+                np.maximum.at(merged, inv, all_ann)
+            old = np.full(len(uniq), zero, dtype=np.float64)
+            pos = np.searchsorted(uniq, keys)
+            old[pos] = ann
+            improved = merged != old
+            delta_keys = uniq[improved]
+            delta_ann = merged[improved]
+            keys, ann = uniq, merged
+            self.backend.stats["recursion.host_trie_rebuilds"] += 1
+            t = Trie.build(name, keyvars, [keys.astype(np.int32)],
+                           annotation=ann)
+            self.catalog.add(name, t)
+        if delta_name in self.catalog.tries:
+            del self.catalog.tries[delta_name]
+        return QueryResult(keyvars, {keyvars[0]: keys.astype(np.int32)}, ann)
+
 
 def _est_error(bags: List[dict]) -> dict:
     """Optimizer scorecard: geometric-mean q-error (max(est,act)/min, >=1)
@@ -385,3 +708,22 @@ def _est_error(bags: List[dict]) -> dict:
         return {"n_bags": 0, "geo_mean_q": None}
     return {"n_bags": len(qs),
             "geo_mean_q": float(np.exp(np.mean(np.log(qs))))}
+
+
+def _expr_scalar_names(e) -> set:
+    """Scalar-relation names referenced by an annotation expression."""
+    if e is None or isinstance(e, (Num, AggRef)):
+        return set()
+    if isinstance(e, ScalarRef):
+        return {e.name}
+    return _expr_scalar_names(e.lhs) | _expr_scalar_names(e.rhs)
+
+
+def rule_without_star(rule: Rule) -> Rule:
+    return dataclasses.replace(rule, recursion=None)
+
+
+def rewrite_atom(rule: Rule, old: str, new: str) -> Rule:
+    body = tuple(dataclasses.replace(a, rel=new) if a.rel == old else a
+                 for a in rule.body)
+    return dataclasses.replace(rule, body=body)

@@ -358,13 +358,13 @@ class GenericJoin:
           semantics (dedup).
         selections: atom_idx -> {attr_pos: constant} equality selections.
         backend: ExecBackend carrying out extensions/intersections; None
-          is a fresh host oracle (NumpyBackend).
+          is ``make_backend(None)``, a device backend on the card.
         hints: plan_ir.BagHints — physical annotations decided by the plan
           IR (statistics-driven Algorithm-3 layout threshold, terminal-fold
           routing). None keeps the backend defaults.
         """
         self.backend = (backend if backend is not None
-                        else backend_mod.NumpyBackend())
+                        else backend_mod.make_backend(None))
         self.var_order = tuple(var_order)
         self.output_vars = tuple(output_vars)
         self.semiring = semiring

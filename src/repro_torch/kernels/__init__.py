@@ -9,4 +9,6 @@ and the on-card oracle):
                     the device terminal fold (``fold``)
   bitset_intersect  paper §4.2 BITSET∩BITSET — AND + __popc
   uint_intersect    paper §4.2 UINT∩UINT     — warp-per-pair search
+  spmv_ell          PageRank's SpMV over fixed-width ELL rows — warp per
+                    row, then a warp per vertex over its split rows
 """

@@ -39,7 +39,8 @@ COUNT_LIMIT = (1 << 31) - 1
 # its CUDA kernel and nowhere else (the plain CPU version does not count).
 LAUNCHES: Dict[str, int] = collections.Counter()
 
-KERNEL_SOURCES = ("frontier_fill", "bitset_intersect", "uint_intersect")
+KERNEL_SOURCES = ("frontier_fill", "bitset_intersect", "uint_intersect",
+                  "spmv_ell")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
@@ -147,6 +148,19 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: expected rank {ndim}, got {t.dim()}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def default_device(device=None, who: str = "the device path") -> torch.device:
+    """The device an entry point runs on: ``device``, or ``cuda`` when it
+    is None.  Raises when that is ``cuda`` and no card is present: the
+    port's entry points run on the card unless the caller asks for the
+    CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} needs a CUDA device; pass device='cpu' to run the "
+            "kernels' plain versions on the host")
+    return dev
 
 
 def kernel_device(t: torch.Tensor, name: str) -> bool:

@@ -1,7 +1,9 @@
-"""The port's CUDA kernels on the card: each kernel bit-equal to its plain
-PyTorch version, one launch counted per launch, no plain fallback for a
-CUDA tensor, and the device engine on the card equal to the same engine
-on the CPU.  Marked ``cuda``; every test skips without a card.  Run on a
+"""The port's CUDA kernels on the card: each integer kernel bit-equal to
+its plain PyTorch version (``spmv_ell`` within float32 rounding of it, and
+bit-equal to itself from launch to launch), one launch counted per launch,
+no plain fallback for a CUDA tensor, the entry points on the card by
+default, and the device engine on the card equal to the same engine on the
+CPU and to the host oracle.  Marked ``cuda``; every test skips without a card.  Run on a
 machine with one: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``."""
 import numpy as np
@@ -16,6 +18,8 @@ from repro_torch.kernels.bitset_intersect import ops as bitset_ops
 from repro_torch.kernels.bitset_intersect.ref import bitset_and_popcount_ref
 from repro_torch.kernels.frontier_fill import ops as fill_ops
 from repro_torch.kernels.frontier_fill.ref import fill_ref, fold_ref
+from repro_torch.kernels.spmv_ell import ops as ell_ops
+from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
 from repro_torch.kernels.uint_intersect import ops as uint_ops
 from repro_torch.kernels.uint_intersect.ref import intersect_count_csr_ref
 
@@ -176,3 +180,72 @@ def test_annotated_fold_on_card_matches_cpu(dev, q):
     g, c = out
     np.testing.assert_array_equal(g.columns["x"], c.columns["x"])
     np.testing.assert_allclose(g.annotation, c.annotation, rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_spmv_ell_kernel_matches_plain(dev, seed):
+    """Split rows of hubs up to 3,000 neighbours: within 1e-5 of each
+    vertex's absolute sum of the plain version (float32 sums in another
+    order), and two launches give the same bits."""
+    from repro_torch.core.trie import CSRGraph
+    r = np.random.default_rng(seed)
+    n = 5000
+    src = np.concatenate([r.integers(0, n, 60_000), np.zeros(3000, int)])
+    dst = np.concatenate([r.integers(0, n, 60_000), np.arange(3000)])
+    csr = CSRGraph.from_edges(src, dst, n=n)
+    vals = r.random(csr.m).astype(np.float32)
+    packed = ell_ops.csr_to_ell_split(csr.offsets, csr.neighbors, vals)
+    cols, vals_t, row_ptr = (torch.as_tensor(a, device=dev) for a in packed)
+    x = torch.as_tensor(r.random(n).astype(np.float32), device=dev)
+    before = common.LAUNCHES["spmv_ell"]
+    got = ell_ops.spmv_ell(cols, vals_t, row_ptr, x)
+    again = ell_ops.spmv_ell(cols, vals_t, row_ptr, x)
+    assert common.LAUNCHES["spmv_ell"] == before + 2
+    assert torch.equal(got, again)
+    want = spmv_ell_ref(cols, vals_t, row_ptr, x)
+    abs_sum = spmv_ell_ref(cols, vals_t.abs(), row_ptr, x.abs())
+    assert bool(((got - want).abs() <= 1e-5 * abs_sum).all())
+
+
+def test_entry_points_run_on_the_card(dev):
+    from repro_torch.core import recursion
+    from repro_torch.core.backend import DeviceBackend, make_backend
+    assert make_backend(None).device.type == "cuda"
+    assert Engine().backend.device.type == "cuda"
+    csr = powerlaw_graph(3000, 10, 2.2, seed=1)
+    b = DeviceBackend()
+    before = common.LAUNCHES["spmv_ell"]
+    ranks = recursion.pagerank(csr, iters=4, backend=b)
+    assert common.LAUNCHES["spmv_ell"] == before + 4
+    assert b.stats["spmv.ell_kernel"] == 4
+    want = recursion.pagerank_np(csr, iters=4)
+    np.testing.assert_allclose(ranks, want, rtol=1e-4, atol=1e-7)
+    # no backend: still the card, and still the ELL kernel
+    np.testing.assert_allclose(recursion.pagerank(csr, iters=4), want,
+                               rtol=1e-4, atol=1e-7)
+    assert common.LAUNCHES["spmv_ell"] == before + 8
+    np.testing.assert_array_equal(recursion.sssp(csr, 0),
+                                  recursion.sssp_np(csr, 0))
+
+
+@pytest.mark.parametrize("prog", ["pagerank", "sssp"])
+def test_engine_recursion_on_card_matches_host_oracle(dev, prog):
+    """PageRank within relative 1e-4 of the host oracle (CUDA index_add_
+    is atomic, so hub sums change order from run to run); SSSP exact;
+    one device fixpoint with as many rounds as the oracle's host loop."""
+    src, dst = edge_list(powerlaw_graph(3000, 10, 2.2, seed=1))
+    q = W.pagerank_program(5) if prog == "pagerank" else W.sssp_program(0)
+    out = []
+    for backend in ("device", "numpy"):
+        eng = Engine(backend=backend)
+        eng.load_edges("Edge", src, dst)
+        out.append((eng.query(q), eng.dispatch_summary()))
+    (g, gd), (h, hd) = out
+    np.testing.assert_array_equal(g.columns["x"], h.columns["x"])
+    if prog == "sssp":
+        np.testing.assert_array_equal(g.annotation, h.annotation)
+    else:
+        np.testing.assert_allclose(g.annotation, h.annotation, rtol=1e-4)
+    assert gd["recursion.device_fixpoints"] == 1
+    assert gd["recursion.device_rounds"] == hd["recursion.host_rounds"]
+    assert gd.get("recursion.host_rounds", 0) == 0

@@ -101,9 +101,14 @@ def test_prepared_query_rebinds():
 
 
 def test_recursive_rule_names_the_roadmap():
-    te = load(TEngine(backend="device", device="cpu"), *edges())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.query(jW.sssp_program(0))
+    """Recursion is ported now (ROADMAP queue 1 item 1): SSSP on this
+    graph runs as one device fixpoint and equals the JAX engine's."""
+    src, dst = edges()
+    jres = load(JEngine(backend="device"), src, dst).query(
+        jW.sssp_program(0))
+    te = load(TEngine(backend="device", device="cpu"), src, dst)
+    assert_same(te.query(jW.sssp_program(0)), jres)
+    assert te.dispatch_summary()["recursion.device_fixpoints"] == 1
 
 
 ANNOTATED = ("P(x;w:float) :- Edge(x,y); w=<<SUM(y)>>.",

@@ -1,9 +1,9 @@
 """The port stands alone: importing ``repro_torch`` and running a query
-pulls in neither jax nor the ``repro`` package (checked in a fresh
-interpreter), the generated program imports ``repro_torch.core``, no
-module of the port (nor ``chip_smoke.py``) has an import of either, and
-the device backend refuses to start without a card unless the caller asks
-for the CPU."""
+and ``recursion.pagerank`` pulls in neither jax nor the ``repro`` package
+(checked in a fresh interpreter), the generated program imports
+``repro_torch.core``, no module of the port (nor ``chip_smoke.py``) has an
+import of either, and every entry point runs on the card — and refuses to
+start without one — unless the caller asks for the CPU."""
 import ast
 import json
 import os
@@ -28,6 +28,11 @@ eng.load_edges("Edge", src, dst)
 for a in W.ALIASES:
     eng.alias(a, "Edge")
 count = int(eng.query(W.TRIANGLE_COUNT).scalar())
+from repro_torch.core import recursion
+from repro_torch.core.backend import DeviceBackend
+ranks = recursion.pagerank(powerlaw_graph(200, 6, 2.0, seed=1), iters=3,
+                           backend=DeviceBackend(device="cpu"))
+assert ranks.shape == (200,)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"count": count, "leaked": leaked,
@@ -75,6 +80,34 @@ def test_device_backend_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(backend="device")
     assert DeviceBackend(device="cpu").device.type == "cpu"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no backend and no device named, the engine, the join and the
+    recursion entry points go to ``cuda`` and raise without a card; the
+    CPU is taken only when asked for."""
+    from repro_torch.core import recursion
+    from repro_torch.core.backend import (DeviceBackend, NumpyBackend,
+                                          make_backend)
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.gj import GenericJoin
+    from repro_torch.core.trie import CSRGraph, Trie
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    csr = CSRGraph.from_edges([0, 1], [1, 0])
+    edge = Trie.build("E", ("x", "y"), [[0, 1], [1, 0]])
+    for call in (lambda: make_backend(None), Engine,
+                 lambda: GenericJoin([(edge, ("x", "y"))], ("x", "y"),
+                                     ("x", "y")),
+                 lambda: recursion.pagerank(csr),
+                 lambda: recursion.sssp(csr, 0)):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            call()
+    assert isinstance(make_backend("numpy"), NumpyBackend)
+    assert Engine(device="cpu").backend.device.type == "cpu"
+    assert isinstance(make_backend(None, device="cpu"), DeviceBackend)
+    assert recursion.pagerank(csr, device="cpu").shape == (2,)
+    assert recursion.sssp(csr, 0, device="cpu").tolist() == [0.0, 1.0]
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -5,8 +5,9 @@ Run from the root of a checkout on a machine with a card:
 
     python3 chip_smoke.py [--profile]
 
-``--profile`` adds a breakdown of one warm full-size TRIANGLE_COUNT
-(host functions by own time, device kernels by time) after the main path.
+``--profile`` adds a breakdown of one warm full-size TRIANGLE_COUNT and
+one warm full-size ``TY`` (host functions by own time, device kernels by
+time) after the main and the materializing path.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -38,13 +39,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    against ``pagerank_np``; ``recursion.sssp`` on the full-size graph,
    exact against ``sssp_np``, and ``recursion.fixpoint`` with a tolerance
    (min-plus hop distances, one host read per 8 steps) equal to it;
-5. every kernel is run again on the largest inputs its path gave it and
-   held against its plain PyTorch version — bit for bit, or for
+5. materializing path, with every launch counter set to 0 just before
+   and read just after: on the full-size graph ``Engine(backend="device")``
+   runs ``TY(x,y)`` and ``SM(x; SUM(z))`` over the triangle (cold, then
+   warm, as in phase 2), whose ``z`` extension routes to the pair store's
+   materializing route and its dense pairs to ``materialize``; the same
+   queries on ``MAT_ORACLE_GRAPH``, ``powerlaw_graph(50_000, 20, 2.2)``,
+   are held against ``Engine(backend="numpy")`` there (the host oracle
+   takes minutes at full size); the lollipop projection ``P(y,a)`` and
+   ``MN(x; MIN(z))`` run on ``powerlaw_graph(2000, 12, 2.0)``, each equal
+   to the host oracle; ``extend.pair_materialize_calls``,
+   ``intersect.materialize_kernel`` and the kernel's launches must be
+   non-zero;
+6. dense triangle path, with every launch counter set to 0 just before
+   and read just after: ``triangle_count_dense`` of the dense 0/1
+   adjacency of ``prune_symmetric(symmetrize(powerlaw_graph(16_384, 20,
+   2.2)))`` (16,384^2 float32) through ``triangle_mm``, equal to the
+   device engine's TRIANGLE_COUNT on the symmetric graph divided by 6;
+7. every kernel is run again on the largest inputs its path gave it and
+   held against its plain PyTorch version — bit for bit (``materialize``
+   up to its total, ``triangle_mm`` against the float64 count), or for
    ``spmv_ell`` within 1e-5 of each vertex's absolute sum, its two
    launches bit-identical — and both are timed with CUDA events (L2
    flushed before each run); ``spmv_ell`` also beside one
-   ``torch.sparse`` CSR product (``library_ms``, used nowhere in the
-   port).
+   ``torch.sparse`` CSR product and ``triangle_mm`` beside
+   ``(torch.matmul(A, A) * A).sum()`` (``library_ms``, used nowhere in
+   the port).
 
 The last three lines of standard output are the kernel table (JSON), the
 card's ``name, power.limit`` from nvidia-smi, and the result line
@@ -64,6 +84,18 @@ SRC = ROOT / "src"
 FULL_GRAPH = (200_000, 20, 2.2)
 SMALL_GRAPH = (2000, 12, 2.0)
 LARGE_GRAPH = (2_000_000, 20, 2.2)   # between Patents and LiveJournal
+TRI_GRAPH = (16_384, 20, 2.2)        # its dense adjacency: 16,384^2 float32
+# the materializing path's host oracle runs on a graph of the full-size
+# graph's shape with about a quarter of its edges, which the device engine
+# answers too: at full size the oracle takes 210 s (TY) and 159 s (SUM
+# over z) on the host of the H100 machine
+MAT_ORACLE_GRAPH = (50_000, 20, 2.2)
+MAT_QUERIES = (
+    ("TY", "TY(x,y) :- R(x,y),S(y,z),T(x,z)."),
+    ("SUM_Z", "SM(x;w:long) :- R(x,y),S(y,z),T(x,z); w=<<SUM(z)>>."))
+SMALL_MAT_QUERIES = (
+    ("P_YA", "P(y,a) :- R(x,y),S(y,z),T(x,z),U(x,a)."),
+    ("MIN_Z", "MN(x;w:long) :- R(x,y),S(y,z),T(x,z); w=<<MIN(z)>>."))
 PR_ITERS = 5
 # PageRank on the card against a host answer: float32 sums over hub rows
 # of up to ~10^5 terms, in an order that CUDA's atomic index_add_ changes
@@ -76,6 +108,7 @@ ELL_REL_LIMIT = 1e-5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
 F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores (0/1 exact)
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "frontier_fill": ("src/repro_torch/csrc/frontier_fill.cu",
@@ -92,6 +125,14 @@ KERNELS = {
 RECURSION_KERNELS = {
     "spmv_ell": ("src/repro_torch/csrc/spmv_ell.cu",
                  "src/repro/kernels/spmv_ell/kernel.py:38"),
+}
+MAT_KERNELS = {
+    "materialize": ("src/repro_torch/csrc/materialize.cu",
+                    "src/repro/kernels/materialize/kernel.py:57"),
+}
+TRI_KERNELS = {
+    "triangle_mm": ("src/repro_torch/csrc/triangle_mm.cu",
+                    "src/repro/kernels/triangle_mm/kernel.py:53"),
 }
 
 
@@ -370,6 +411,147 @@ def load(eng, src, dst, aliases):
     return eng
 
 
+def canonical(res):
+    """A query result as (key rows sorted, annotation in that order)."""
+    import numpy as np
+    if not res.vars:
+        return np.zeros((0, 0), np.int64), np.asarray(res.annotation)
+    rows = np.stack([np.asarray(res.columns[v]) for v in res.vars], 1)
+    order = np.lexsort(rows.T[::-1])
+    ann = (None if res.annotation is None
+           else np.asarray(res.annotation)[order])
+    return rows[order], ann
+
+
+def same_result(got, want):
+    import numpy as np
+    (ga, gann), (wa, wann) = canonical(got), canonical(want)
+    if ga.shape != wa.shape or not np.array_equal(ga, wa):
+        return False
+    if wann is None:
+        return gann is None
+    return gann is not None and np.array_equal(gann, wann)
+
+
+def materialize_path(src, dst, torch):
+    """Phase 5: triangle-shaped queries that materialize ``z`` on the
+    card.  Returns the launch counts of this path."""
+    from repro_torch.core.engine import Engine
+    from repro_torch.core import workload as W
+    from repro_torch.core.executor import BagResultCache
+    from repro_torch.data.graphs import edge_list, powerlaw_graph
+    from repro_torch.kernels import common
+
+    import numpy as np
+
+    common.reset_launches()
+    eng = load(Engine(backend="device"), src, dst, W.ALIASES)
+    device_res, walls = {}, {}
+    for name, q in MAT_QUERIES:
+        runs = []
+        for run in ("cold", "warm"):
+            eng.bag_cache = BagResultCache()
+            before = dict(eng.dispatch_summary())
+            t0 = time.perf_counter()
+            res = eng.query(q)
+            torch.cuda.synchronize()
+            walls[f"{name}.{run}"] = time.perf_counter() - t0
+            after = eng.dispatch_summary()
+            delta = {k: after[k] - before.get(k, 0) for k in after
+                     if k.startswith(("intersect.materialize", "extend.",
+                                      "analysis.", "pipeline.launches"))
+                     and after[k] != before.get(k, 0)}
+            log(f"[materialize] {name} {run}: {res.num_rows} rows in "
+                f"{walls[f'{name}.{run}']} s; {json.dumps(delta, sort_keys=True)}")
+            check(delta.get("extend.pair_materialize_calls", 0) >= 1,
+                  f"{name} {run}: the pair store's materializing route "
+                  "did not run")
+            check(delta.get("intersect.materialize_kernel", 0) > 0,
+                  f"{name} {run}: no pair took the materialize kernel")
+            runs.append(res)
+        check(same_result(*runs), f"{name}: the warm run differs from the "
+                                  "cold one")
+        device_res[name] = res
+    # full size: the x of the triangles' SUM rows are the x of TY's rows
+    check(np.array_equal(np.unique(device_res["TY"].columns["x"]),
+                         np.unique(device_res["SUM_Z"].columns["x"])),
+          "TY and SUM(z) disagree on which x lie on a triangle")
+    log(f"[materialize] walls_s {json.dumps(walls)}")
+
+    osrc, odst = edge_list(powerlaw_graph(*MAT_ORACLE_GRAPH, seed=0))
+    oeng = load(Engine(backend="device"), osrc, odst, W.ALIASES)
+    host = load(Engine(backend="numpy"), osrc, odst, W.ALIASES)
+    for name, q in MAT_QUERIES:
+        t0 = time.perf_counter()
+        got = oeng.query(q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = host.query(q)
+        log(f"[materialize] {name} on powerlaw_graph{MAT_ORACLE_GRAPH}: "
+            f"{got.num_rows} rows in {wall} s; host oracle "
+            f"{want.num_rows} rows in {time.perf_counter() - t0} s")
+        check(same_result(got, want), f"{name} differs from the host "
+                                      "engine")
+    del oeng, host
+
+    s2, d2 = edge_list(powerlaw_graph(*SMALL_GRAPH, seed=0))
+    for name, q in SMALL_MAT_QUERIES:
+        dev_eng = load(Engine(backend="device"), s2, d2, W.ALIASES)
+        t0 = time.perf_counter()
+        got = dev_eng.query(q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = load(Engine(backend="numpy"), s2, d2, W.ALIASES).query(q)
+        d = dev_eng.dispatch_summary()
+        log(f"[materialize] small {name}: {got.num_rows} rows in {wall} s; "
+            f"materialize_kernel pairs "
+            f"{d.get('intersect.materialize_kernel', 0)}")
+        check(same_result(got, want), f"{name} on the small graph differs "
+                                      "from the host engine")
+        check(d.get("intersect.materialize_kernel", 0) > 0,
+              f"{name}: no pair took the materialize kernel")
+    launches = dict(common.LAUNCHES)
+    log(f"[materialize] launches {json.dumps(launches)}")
+    if "--profile" in sys.argv[1:]:
+        profile_query(eng, MAT_QUERIES[0][1], BagResultCache, torch)
+    return launches
+
+
+def triangle_path(torch):
+    """Phase 6: the dense triangle count through ``triangle_mm``, against
+    the device engine's TRIANGLE_COUNT on the symmetric graph.  Returns
+    the launch counts of this path."""
+    from repro_torch.core import workload as W
+    from repro_torch.core.engine import Engine
+    from repro_torch.data.graphs import edge_list, powerlaw_graph
+    from repro_torch.graph.prune import prune_symmetric, symmetrize
+    from repro_torch.kernels import common, triangle_count_dense
+    from repro_torch.kernels.triangle_mm.ops import densify_csr
+
+    g = powerlaw_graph(*TRI_GRAPH, seed=0)
+    sym = symmetrize(*edge_list(g), n=g.n)
+    pruned = prune_symmetric(sym)
+    common.reset_launches()
+    t0 = time.perf_counter()
+    dense = densify_csr(pruned.offsets, pruned.neighbors, g.n)
+    tri = triangle_count_dense(dense, symmetric=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del dense
+    eng = load(Engine(backend="device"), *edge_list(sym), W.ALIASES)
+    count = int(eng.query(W.TRIANGLE_COUNT).scalar())
+    del eng
+    log(f"[triangle] powerlaw_graph{TRI_GRAPH}: {sym.m} directed edges, "
+        f"{pruned.m} after pruning; triangle_count_dense {float(tri)} in "
+        f"{wall} s with densify and upload; engine TRIANGLE_COUNT {count}")
+    check(count % 6 == 0 and float(tri) == count // 6,
+          f"dense triangle count {float(tri)} != engine {count} / 6")
+    launches = dict(common.LAUNCHES)
+    log(f"[triangle] launches {json.dumps(launches)}")
+    return launches
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -392,8 +574,12 @@ def main():
         bitset_and_popcount_ref
     from repro_torch.kernels.frontier_fill import ops as fill_ops
     from repro_torch.kernels.frontier_fill.ref import fill_ref, fold_ref
+    from repro_torch.kernels.materialize import ops as mat_ops
+    from repro_torch.kernels.materialize.ref import materialize_ref
     from repro_torch.kernels.spmv_ell import ops as ell_ops
     from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
+    from repro_torch.kernels.triangle_mm import ops as tri_ops
+    from repro_torch.kernels.triangle_mm.ref import triangle_count_dense_ref
     from repro_torch.kernels.uint_intersect import ops as uint_ops
     from repro_torch.kernels.uint_intersect.ref import \
         intersect_count_csr_ref
@@ -451,15 +637,8 @@ def main():
         got = dev_eng.query(q)
         wall = time.perf_counter() - t0
         ref = load(Engine(backend="numpy"), s2, d2, W.ALIASES).query(q)
-        if got.vars:
-            a = np.stack([got.columns[v] for v in got.vars], 1)
-            b = np.stack([ref.columns[v] for v in ref.vars], 1)
-            same = (a.shape == b.shape and np.array_equal(
-                a[np.lexsort(a.T[::-1])], b[np.lexsort(b.T[::-1])]))
-            shown = f"{len(a)} rows"
-        else:
-            same = int(got.scalar()) == int(ref.scalar())
-            shown = int(got.scalar())
+        same = same_result(got, ref)
+        shown = f"{got.num_rows} rows" if got.vars else int(got.scalar())
         d = dev_eng.dispatch_summary()
         log(f"[small] {name}: {shown} in {wall} s; host_syncs="
             f"{d.get('extend.host_syncs', 0)} closing_syncs="
@@ -509,10 +688,31 @@ def main():
     for name in RECURSION_KERNELS:
         check(rec_launches.get(name, 0) > 0, f"kernel {name} never launched")
 
-    # ---------------------------------- 5. kernels against plain versions
+    # ------------------------------------------ 5. materializing path
+    captures["materialize"] = Capture(
+        mat_ops, "materialize", lambda w, b, i, pa, *a: int(pa.shape[0]))
+    mat_launches = materialize_path(src, dst, torch)
+    captures["materialize"].restore()
+    for name in MAT_KERNELS:
+        check(mat_launches.get(name, 0) > 0, f"kernel {name} never launched")
+
+    # ----------------------------------------- 6. dense triangle path
+    captures["triangle_mm"] = Capture(tri_ops, "triangle_mm",
+                                      lambda a: int(a.shape[0]))
+    tri_launches = triangle_path(torch)
+    captures["triangle_mm"].restore()
+    for name in TRI_KERNELS:
+        check(tri_launches.get(name, 0) > 0, f"kernel {name} never launched")
+    path_launches = collections.Counter()
+    for counts in (launches, rec_launches, mat_launches, tri_launches):
+        path_launches.update(counts)
+
+    # ---------------------------------- 7. kernels against plain versions
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def time_ms(fn, reps):
+        """Median over ``reps`` launches of ``fn`` (L2 flushed before
+        each), in ms."""
         fn()
         torch.cuda.synchronize()
         ev = [(torch.cuda.Event(enable_timing=True),
@@ -550,9 +750,11 @@ def main():
         return out if isinstance(out, tuple) else (out,)
 
     rows = []
-    for name, (source, replaces) in {**KERNELS, **RECURSION_KERNELS}.items():
+    for name, (source, replaces) in {**KERNELS, **RECURSION_KERNELS,
+                                     **MAT_KERNELS, **TRI_KERNELS}.items():
         args = captures[name].args
         library_ms = None
+        reps, plain_reps = 20, 5
         bound_ops_per_s = INT32_OPS_PER_S
         check(args is not None, f"no captured call of {name}")
         if name == "frontier_fill":
@@ -610,6 +812,38 @@ def main():
                      f"entries={nnz} outputs={n_out}; bound with the "
                      f"padding read {padded / HBM_BYTES_PER_S * 1e6:.2f} "
                      f"us ({padded} bytes)")
+        elif name == "materialize":
+            words, block_ids, index, pa, pb, pid, cap = args
+            kern = lambda: mat_ops.materialize(*args)             # noqa: E731
+            plain = lambda: materialize_ref(*args)                # noqa: E731
+            p = int(pa.shape[0])
+            w = int(words.shape[1])
+            total = int(kern()[0])
+            rows_read = int(torch.unique(torch.cat([pa, pb])).numel())
+            # each matched block read once (its words, block id and
+            # index), the three per-pair inputs, 16 bytes per match
+            # written and the total
+            moved = rows_read * (w * 4 + 8) + nbytes(pa, pb, pid) \
+                + total * 16 + 4
+            ops = p * w * 8 + total * 12
+            plain_reps = 3
+            shape = (f"pairs={p} words={w} blocks={int(words.shape[0])} "
+                     f"rows_read={rows_read} matches={total} cap={cap}")
+        elif name == "triangle_mm":
+            (a,) = args
+            n = int(a.shape[0])
+            kern = lambda: tri_ops.triangle_mm(a)                 # noqa: E731
+            plain = lambda: triangle_count_dense_ref(a)           # noqa: E731
+            nnz = int((a != 0).sum())
+            moved = nbytes(a) + 8
+            # Σ((A@A)⊙A) needs (A@A)_ij only where A_ij != 0: one length-n
+            # dot product per nonzero of this input, not the dense 2n³
+            ops = 2 * n * nnz
+            bound_ops_per_s = BF16_OPS_PER_S
+            reps, plain_reps = 5, 3
+            shape = (f"n={n} nonzeros={nnz}; the dense product's 2n^3 "
+                     f"at the bf16 rate would take "
+                     f"{2 * n ** 3 / BF16_OPS_PER_S * 1e3:.4f} ms")
         else:
             offs, nbr, u, v = args
             kern = lambda: uint_ops.intersect_count_csr(*args)    # noqa: E731
@@ -653,20 +887,41 @@ def main():
                       f" torch.sparse {library_ms:.4f} ms ({lib_rel} of "
                       "the absolute sum)")
             del a, lib
+        elif name == "materialize":
+            got, want = kern(), plain()
+            check(int(got[0]) == int(want[0]) == total,
+                  f"materialize: totals {int(got[0])} / {int(want[0])}")
+            err = max_err(tuple(got[1:].view(4, cap)[:, :total]),
+                          tuple(want[1:].view(4, cap)[:, :total]))
+            check(err == 0, f"materialize differs from its plain version "
+                            f"(max |err| {err})")
+            shape += "; bit-equal up to the total"
+        elif name == "triangle_mm":
+            got, want = kern(), plain()
+            check(torch.equal(got, kern()), "triangle_mm: two launches "
+                                            "differ")
+            err = abs(int(got) - int(want))
+            check(err == 0 and float(want) == int(want),
+                  f"triangle_mm {int(got)} != plain {float(want)}")
+            lib_fn = lambda: (torch.matmul(a, a) * a).sum()       # noqa: E731
+            lib = float(lib_fn())
+            library_ms = time_ms(lib_fn, reps)
+            shape += (f"; raw count {int(got)}, equal to the float64 plain "
+                      f"version, two launches equal; torch.matmul "
+                      f"{library_ms:.4f} ms (gives {lib})")
         else:
             err = max_err(flat(name, kern()), flat(name, plain()))
             check(err == 0, f"{name} differs from its plain version (max "
                             f"|err| {err})")
             shape += "; bit-equal"
-        ms = time_ms(kern, 20)
-        plain_ms = time_ms(plain, 5)
+        ms = time_ms(kern, reps)
+        plain_ms = time_ms(plain, plain_reps)
         b_bytes = moved / HBM_BYTES_PER_S * 1e3
         b_ops = ops / bound_ops_per_s * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": int(launches.get(name, 0)
-                            + rec_launches.get(name, 0)),
+            "launches": int(path_launches.get(name, 0)),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",

@@ -43,6 +43,7 @@ from repro_torch.kernels.bitset_intersect import ops as bitset_ops
 from repro_torch.kernels.common import (IDX, IDX_NP, default_device,
                                         host_get)
 from repro_torch.kernels.frontier_fill import ops as ff_ops
+from repro_torch.kernels.materialize import ops as mat_ops
 from repro_torch.kernels.uint_intersect import ops as uint_ops
 
 # Pairs whose larger set exceeds this stay on the lockstep binary search
@@ -253,16 +254,12 @@ class DeviceBackend(ExecBackend):
         return engine_store_for(trie, device=self.device,
                                 word_kernel=bitset_ops.bitset_and_popcount,
                                 uint_kernel=uint_ops.intersect_count_csr,
+                                materialize_kernel=(
+                                    mat_ops.bitset_pair_materialize),
                                 uint_max_len=self._uint_max_len,
                                 counter=self.stats,
                                 cache_tag=f"device:{self.device}",
                                 threshold=threshold)
-
-    def pair_materialize(self, trie, u, v, threshold=None):
-        raise NotImplementedError(
-            "the materializing bitset intersection needs the materialize "
-            "kernel, which this port does not have yet (ROADMAP: queue 1 "
-            "item 2, materialize with pair_store)")
 
     # ---------------------------------------------- zero-sync pipeline
     # The frontier stays device-resident between attribute extensions:

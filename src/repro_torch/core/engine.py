@@ -29,6 +29,11 @@ oracle.  One backend instance lives per Engine, so multi-rule and
 recursive programs reuse its device-resident uploads;
 ``Engine.dispatch_summary()`` reports which kernel handled each
 intersection and how each fixpoint ran.
+
+**Verification**: every lowered physical plan, and every plan-search
+candidate, passes the static validator (``repro_torch.analysis``) before
+it runs (``verify_plans=True``, the default); ``sanitize=True`` checks
+each rule's dispatch counters against its plan after it runs.
 """
 from __future__ import annotations
 
@@ -119,7 +124,8 @@ class Engine:
     """Public API: load relations, run datalog programs."""
 
     def __init__(self, use_ghd: bool = True, use_codegen: bool = True,
-                 backend=None, device=None, plan_search: bool = True):
+                 backend=None, device=None, plan_search: bool = True,
+                 verify_plans: bool = True, sanitize: bool = False):
         self.catalog = Catalog()
         self.use_ghd = use_ghd
         self.use_codegen = use_codegen
@@ -129,6 +135,13 @@ class Engine:
         # cost-based GHD + attribute-order search (core.plan_search);
         # False pins the seed appearance-order plan
         self.plan_search = bool(plan_search)
+        # static plan verification (repro_torch.analysis.plan_verify) over
+        # every lowered plan AND every plan-search candidate
+        self.verify_plans = bool(verify_plans)
+        # runtime dispatch sanitizer: after each rule execution, assert the
+        # backend counters match the validated plan's predictions (off by
+        # default — it snapshots the counters per rule)
+        self.sanitize = bool(sanitize)
         self.dictionary: Dict[object, int] = {}
         self.last_plan: Optional[QueryPlan] = None
         self.last_physical: Optional[plan_ir.PhysicalPlan] = None
@@ -224,6 +237,16 @@ class Engine:
         self._compile(rule_p)
         return PreparedQuery(self, rule_p, defaults)
 
+    def explain(self, text: str) -> str:
+        """The logical plan (GHD bags, attribute order) of each rule of
+        ``text``, pretty-printed."""
+        prog = parse(text)
+        out = []
+        for rule in prog.rules:
+            plan = self._compile(rule)
+            out.append(plan.pretty())
+        return "\n".join(out)
+
     def generated_source(self) -> Optional[str]:
         return self.last_source
 
@@ -289,7 +312,9 @@ class Engine:
                     self.backend.stats["compile.plan_searches"] += 1
                     sr = plan_search_mod.search(
                         plan, self.stats_catalog, self.catalog,
-                        bag_cache=self.bag_cache, use_ghd=self.use_ghd)
+                        bag_cache=self.bag_cache, use_ghd=self.use_ghd,
+                        verify=self.verify_plans,
+                        counter=self.backend.stats)
                     decided = (sr.chosen, sr.metadata())
                     if len(self._search_cache) >= 256:
                         self._search_cache.pop(
@@ -303,6 +328,13 @@ class Engine:
             else:
                 pplan = plan_ir.build_physical_plan(plan, self.stats_catalog,
                                                     self.catalog)
+            if self.verify_plans:
+                # static proof obligations on the plan execution is about
+                # to consume — the search path verified candidates too;
+                # this re-checks the final (re-annotated) lowering
+                from repro_torch.analysis import assert_valid
+                assert_valid(pplan, self.catalog, self.stats_catalog)
+                self.backend.stats["analysis.plans_verified"] += 1
             fn = src = None
             if self.use_codegen:
                 fn, src = codegen_mod.emit(pplan)
@@ -317,6 +349,9 @@ class Engine:
         pplan, fn, src, search_md = self._physical(plan)
         self.last_physical = pplan
         enc = encode if encode is not None else self.encode
+        # sanitize: snapshot AFTER planning (verification counters are not
+        # execution dispatch) so the delta is exactly this rule's dispatch
+        stats_before = dict(self.backend.stats) if self.sanitize else None
         metrics: Dict[int, dict] = {}
         if self.use_codegen:
             self.last_source = src
@@ -328,6 +363,13 @@ class Engine:
                           stats_catalog=self.stats_catalog)
             res = ex.run(pplan)
             metrics = ex.metrics
+        if self.sanitize:
+            from repro_torch.analysis.kernel_check import check_dispatch
+            delta = {k: v - stats_before.get(k, 0)
+                     for k, v in self.backend.stats.items()
+                     if v != stats_before.get(k, 0)}
+            check_dispatch(pplan, delta, metrics, self.backend.name)
+            self.backend.stats["analysis.sanitize_checks"] += 1
         md = pplan.metadata()
         for bag in md["bags"]:
             m = metrics.get(bag["op_id"])

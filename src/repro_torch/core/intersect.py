@@ -156,6 +156,7 @@ class BlockedBitset:
     block_ids: np.ndarray   # [B] int32 block numbers, sorted per set
     words: np.ndarray       # [B, block_bits//32] uint32
     index: np.ndarray       # [B] int64 cumulative cardinality before block
+    card: np.ndarray        # [B] int64 cardinality of each block
     slot_of: np.ndarray     # [n_ids] int32 -> slot in set_ids, or -1
 
 
@@ -197,7 +198,8 @@ def build_blocked_bitset(offsets: np.ndarray, neighbors: np.ndarray,
 
     slot_of = np.full(n_total, -1, dtype=np.int32)
     slot_of[ids] = np.arange(len(ids), dtype=np.int32)
-    return BlockedBitset(block_bits, ids, off, blk_id, words, index, slot_of)
+    return BlockedBitset(block_bits, ids, off, blk_id, words, index, card,
+                         slot_of)
 
 
 def bitset_intersect_count(bs: BlockedBitset, a_slots: np.ndarray,

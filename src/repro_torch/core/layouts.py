@@ -77,6 +77,7 @@ def decide_set_level(csr: CSRGraph, threshold: float = SIMD_REGISTER_BITS) -> La
 def engine_store_for(trie, *, device: torch.device,
                      word_kernel: Optional[Callable] = None,
                      uint_kernel: Optional[Callable] = None,
+                     materialize_kernel: Optional[Callable] = None,
                      uint_max_len: int = 256,
                      counter=None,
                      cache_tag: str = "host",
@@ -112,6 +113,7 @@ def engine_store_for(trie, *, device: torch.device,
         store = HybridSetStore.build(csr, device, threshold=threshold,
                                      word_kernel=word_kernel,
                                      uint_kernel=uint_kernel,
+                                     materialize_kernel=materialize_kernel,
                                      uint_max_len=uint_max_len)
         cache[key] = store
     if counter is not None:
@@ -140,6 +142,11 @@ class HybridSetStore:
     # injected batched uint∩uint kernel ((offsets, neighbors, u, v) int32
     # device tensors -> counts) for short pairs; None -> lockstep search
     uint_kernel: Optional[Callable] = None
+    # injected materializing bitset∩bitset kernel ((bitset, a_slots,
+    # b_slots, words, block_ids, index) -> (pair_id, values, rank_a,
+    # rank_b)); None -> the host extraction
+    # (intersect.bitset_intersect_materialize)
+    materialize_kernel: Optional[Callable] = None
     # pairs whose larger set exceeds this stay on the search path
     uint_max_len: int = 256
     # Counter-like sink recording which kernel handled each pair
@@ -151,6 +158,7 @@ class HybridSetStore:
               block_bits: int = SIMD_REGISTER_BITS,
               word_kernel: Optional[Callable] = None,
               uint_kernel: Optional[Callable] = None,
+              materialize_kernel: Optional[Callable] = None,
               uint_max_len: int = 256) -> "HybridSetStore":
         d = decide_set_level(csr, threshold)
         bs = None
@@ -158,7 +166,7 @@ class HybridSetStore:
             bs = I.build_blocked_bitset(csr.offsets, csr.neighbors,
                                         d.dense_ids, csr.n, block_bits)
         return HybridSetStore(csr, d, bs, torch.device(device), word_kernel,
-                              uint_kernel, uint_max_len)
+                              uint_kernel, materialize_kernel, uint_max_len)
 
     def _bump(self, key: str, n: int):
         if self.counter is not None:
@@ -166,14 +174,16 @@ class HybridSetStore:
 
     def dev(self, name: str) -> torch.Tensor:
         """Device copy (int32) of one of the store's arrays, uploaded on
-        first use: ``neighbors``/``offsets`` of the CSR, ``block_ids`` and
-        ``words`` (the int32 view of the uint32 blocks) of the bitset."""
+        first use: ``neighbors``/``offsets`` of the CSR, ``block_ids``,
+        ``words`` (the int32 view of the uint32 blocks) and ``index`` of
+        the bitset."""
         t = self._dev.get(name)
         if t is None:
             src = {"neighbors": lambda: self.csr.neighbors,
                    "offsets": lambda: self.csr.offsets,
                    "block_ids": lambda: self.bitset.block_ids,
-                   "words": lambda: self.bitset.words.view(np.int32)}[name]()
+                   "words": lambda: self.bitset.words.view(np.int32),
+                   "index": lambda: self.bitset.index}[name]()
             t = torch.as_tensor(np.ascontiguousarray(src, dtype=np.int32),
                                 device=self.device)
             self._dev[name] = t
@@ -256,12 +266,18 @@ class HybridSetStore:
 
     def intersect_materialize(self, u: np.ndarray, v: np.ndarray):
         """Materializing intersection, cohort-routed like
-        ``intersect_count``: dense×dense pairs extract matches from the
-        blocked bitset on the host (positions from the per-block
-        ``index``), every other cohort takes the uint search path.
+        ``intersect_count``.
+
         Returns ``(pair_id, value, pos_u, pos_v)`` — positions are
-        absolute indices into ``csr.neighbors``.  Pair counts land in
-        ``intersect.materialize_{bitset,uint}``.
+        absolute indices into ``csr.neighbors`` (the trie's set-level
+        values, for descent into deeper levels / annotation gathers).
+        Dense×dense pairs extract matches from the blocked bitset,
+        recovering positions via the per-block ``index`` (paper Figure 6):
+        through the injected ``materialize_kernel`` (the device backend's
+        CUDA kernel) or, without one, the host extraction.  Every other
+        cohort takes the uint search path.  Pair counts land in
+        ``intersect.materialize_{kernel,bitset,uint}`` — kernel vs bitset
+        tells who executed the dense cohort.
         """
         u = np.asarray(u, np.int64)
         v = np.asarray(v, np.int64)
@@ -270,21 +286,32 @@ class HybridSetStore:
             return I.intersect_pairs_uint(self.csr.offsets,
                                           self.csr.neighbors, u, v,
                                           self.dev("neighbors"))
+        if self.materialize_kernel is not None:
+            dense_key = "intersect.materialize_kernel"
+
+            def dense_mat(a, b):
+                return self.materialize_kernel(
+                    self.bitset, a, b, self.dev("words"),
+                    self.dev("block_ids"), self.dev("index"))
+        else:
+            dense_key = "intersect.materialize_bitset"
+
+            def dense_mat(a, b):
+                return I.bitset_intersect_materialize(
+                    self.bitset, a, b, self.dev("block_ids"))
         slot = self.bitset.slot_of
         both_dense = (slot[u] >= 0) & (slot[v] >= 0)
         if both_dense.all():
-            self._bump("intersect.materialize_bitset", len(u))
-            pid, vals, ra, rb = I.bitset_intersect_materialize(
-                self.bitset, slot[u], slot[v], self.dev("block_ids"))
+            self._bump(dense_key, len(u))
+            pid, vals, ra, rb = dense_mat(slot[u], slot[v])
             return (pid, vals,
                     self.csr.offsets[u[pid]] + ra,
                     self.csr.offsets[v[pid]] + rb)
         di = np.flatnonzero(both_dense)
         si = np.flatnonzero(~both_dense)
-        self._bump("intersect.materialize_bitset", len(di))
+        self._bump(dense_key, len(di))
         self._bump("intersect.materialize_uint", len(si))
-        pid_d, vals_d, ra, rb = I.bitset_intersect_materialize(
-            self.bitset, slot[u[di]], slot[v[di]], self.dev("block_ids"))
+        pid_d, vals_d, ra, rb = dense_mat(slot[u[di]], slot[v[di]])
         pos_u_d = self.csr.offsets[u[di][pid_d]] + ra
         pos_v_d = self.csr.offsets[v[di][pid_d]] + rb
         pid_s, vals_s, pu_s, pv_s = I.intersect_pairs_uint(

@@ -100,7 +100,8 @@ class BagScan(PlanOp):
 
 # Legal routing vocabularies — the cohort dispatch tables in
 # ``core.layouts`` / ``core.gj`` only understand these values, and the
-# runtime (``core.gj``) understands nothing else.
+# plan validator (``repro_torch.analysis.plan_verify``) rejects anything
+# else.
 EXTEND_ROUTINGS = frozenset({"search", "pair_store"})
 FOLD_ROUTINGS = frozenset({"search", "pair_kernel"})
 

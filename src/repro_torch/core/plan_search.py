@@ -155,6 +155,8 @@ def search(base_plan: QueryPlan,
            catalog,
            bag_cache=None,
            use_ghd: bool = True,
+           verify: bool = False,
+           counter=None,
            **bounds) -> SearchResult:
     """Cost every candidate against the CURRENT catalog statistics and
     return the cheapest (strict argmin — ties keep the seed plan).
@@ -168,7 +170,16 @@ def search(base_plan: QueryPlan,
     exactly the indexes execution is about to use anyway — which is also
     the plan whose routing annotations the runtime consumes.
 
+    ``verify=True`` runs the static plan validator
+    (:mod:`repro_torch.analysis.plan_verify`) over EVERY candidate
+    lowering — not just the winner — sharing the candidate loop's
+    ``agm_memo`` for the AGM-cap checks; an invalid candidate is a
+    planner bug and raises immediately.  ``counter`` (the backend's stats
+    Counter) records how many candidates were verified under
+    ``analysis.candidates_verified``.
     """
+    if verify:
+        from repro_torch.analysis import assert_valid
     cands = enumerate_candidates(base_plan, use_ghd=use_ghd, **bounds)
     agm_memo: dict = {}
     best = None
@@ -179,6 +190,10 @@ def search(base_plan: QueryPlan,
         pplan = plan_ir.build_physical_plan(plan, stats, catalog,
                                             agm_memo=agm_memo,
                                             profile_tries=False)
+        if verify:
+            assert_valid(pplan, catalog, stats, agm_memo=agm_memo)
+            if counter is not None:
+                counter["analysis.candidates_verified"] += 1
         cost = plan_ir.plan_cost(pplan, bag_cache, catalog)
         if i == 0:
             baseline_cost = cost
@@ -187,6 +202,8 @@ def search(base_plan: QueryPlan,
     chosen = best
     physical = plan_ir.build_physical_plan(chosen, stats, catalog,
                                            agm_memo=agm_memo)
+    if verify:
+        assert_valid(physical, catalog, stats, agm_memo=agm_memo)
     return SearchResult(chosen=chosen, physical=physical,
                         cost=float(best_cost),
                         baseline_cost=float(baseline_cost),

@@ -11,4 +11,10 @@ and the on-card oracle):
   uint_intersect    paper §4.2 UINT∩UINT     — warp-per-pair search
   spmv_ell          PageRank's SpMV over fixed-width ELL rows — warp per
                     row, then a warp per vertex over its split rows
+  materialize       paper §4.2/Fig 6 materializing BITSET∩BITSET — count
+                    then fill, a warp per matched block pair, popcount
+                    ranks
+  triangle_mm       dense-cohort triangle count sum((A@A)*A) — tiled
+                    float32 product, masked integer reduction
 """
+from repro_torch.kernels.triangle_mm.ops import triangle_count_dense  # noqa: F401

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each integer kernel bit-equal to
-its plain PyTorch version (``spmv_ell`` within float32 rounding of it, and
+its plain PyTorch version (``materialize`` up to its total, ``triangle_mm``
+to the plain float64 count) (``spmv_ell`` within float32 rounding of it, and
 bit-equal to itself from launch to launch), one launch counted per launch,
 no plain fallback for a CUDA tensor, the entry points on the card by
 default, and the device engine on the card equal to the same engine on the
@@ -18,8 +19,12 @@ from repro_torch.kernels.bitset_intersect import ops as bitset_ops
 from repro_torch.kernels.bitset_intersect.ref import bitset_and_popcount_ref
 from repro_torch.kernels.frontier_fill import ops as fill_ops
 from repro_torch.kernels.frontier_fill.ref import fill_ref, fold_ref
+from repro_torch.kernels.materialize import ops as mat_ops
+from repro_torch.kernels.materialize.ref import materialize_ref
 from repro_torch.kernels.spmv_ell import ops as ell_ops
 from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
+from repro_torch.kernels.triangle_mm import ops as tri_ops
+from repro_torch.kernels.triangle_mm.ref import triangle_count_dense_ref
 from repro_torch.kernels.uint_intersect import ops as uint_ops
 from repro_torch.kernels.uint_intersect.ref import intersect_count_csr_ref
 
@@ -129,6 +134,110 @@ def test_cuda_tensor_never_takes_the_plain_version(dev):
     pos = torch.zeros(3, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
         bitset_ops.bitset_and_popcount(words, pos, pos)
+    with pytest.raises(TypeError):
+        mat_ops.materialize(words, pos, pos, pos, pos, pos, 8)
+    # the plain version takes any square matrix; the kernel refuses a
+    # size that is not a multiple of its tile instead of falling back
+    a = torch.ones((100, 100), dtype=torch.float32)
+    assert int(tri_ops.triangle_mm(a)) == 100 ** 3
+    with pytest.raises(ValueError, match="multiple"):
+        tri_ops.triangle_mm(a.to(dev))
+
+
+def _random_bitset(seed, block_bits):
+    from repro_torch.core.intersect import build_blocked_bitset
+    r = np.random.default_rng(seed)
+    rows = [np.sort(r.choice(6000, size=int(r.integers(0, 400)),
+                             replace=False)) for _ in range(300)]
+    offs = np.concatenate([[0], np.cumsum([len(x) for x in rows])])
+    nbr = np.concatenate(rows).astype(np.int32)
+    ids = np.flatnonzero(np.diff(offs) > 0)
+    return build_blocked_bitset(offs, nbr, ids, 6000, block_bits), ids
+
+
+@pytest.mark.parametrize("block_bits", [256, 1024, 2048, 4096])
+@pytest.mark.parametrize("seed", range(2))
+def test_materialize_kernel_matches_plain(dev, seed, block_bits):
+    """Bit-equal to the plain version up to the total (one or more
+    chunks of 32 words per block), two launches per call, and the whole
+    entry equal to the host extraction."""
+    from repro_torch.core import intersect as I
+    bs, ids = _random_bitset(seed, block_bits)
+    r = np.random.default_rng(50 + seed)
+    a, b = r.integers(0, len(ids), (2, 3000))
+    bid = t32(bs.block_ids, dev)
+    pair_id, _, pa, pb = I.intersect_pairs_uint(bs.offsets, bs.block_ids,
+                                                a, b, bid)
+    cap = int(np.minimum(bs.card[pa], bs.card[pb]).sum())
+    args = (t32(bs.words.view(np.int32), dev), bid, t32(bs.index, dev),
+            t32(pa, dev), t32(pb, dev), t32(pair_id, dev))
+    before = common.LAUNCHES["materialize"]
+    got = mat_ops.materialize(*args, cap)
+    assert common.LAUNCHES["materialize"] == before + 2
+    want = materialize_ref(*args, cap)
+    total = int(want[0])
+    assert int(got[0]) == total > 0
+    assert torch.equal(got[1:].view(4, cap)[:, :total],
+                       want[1:].view(4, cap)[:, :total])
+    out = mat_ops.bitset_pair_materialize(bs, a, b, args[0], bid, args[2])
+    host = I.bitset_intersect_materialize(bs, a, b, bid)
+    for x, y in zip(out, host):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("n,pruned", [(512, False), (1024, True),
+                                      (1536, False)])
+def test_triangle_mm_kernel_matches_plain(dev, n, pruned):
+    """The exact raw count equals the plain float64 version's, twice the
+    same, one launch per call; the entry's float32 count divides by 6 on
+    a symmetric adjacency."""
+    r = np.random.default_rng(n)
+    a = np.triu(r.random((n, n)) < 0.05, 1)
+    if not pruned:
+        a = a | a.T
+    t = torch.as_tensor(a.astype(np.float32), device=dev)
+    before = common.LAUNCHES["triangle_mm"]
+    got = tri_ops.triangle_mm(t)
+    assert torch.equal(got, tri_ops.triangle_mm(t))
+    assert common.LAUNCHES["triangle_mm"] == before + 2
+    want = int(triangle_count_dense_ref(t))
+    assert int(got) == want > 0
+    ent = tri_ops.triangle_count_dense(t[: n - 5, : n - 5].contiguous(),
+                                       symmetric=not pruned)
+    sub = t[: n - 5, : n - 5].double()
+    raw = float(((sub @ sub) * sub).sum())
+    assert float(ent) == np.float32(raw / 6.0 if not pruned else raw)
+
+
+@pytest.mark.parametrize("q", [
+    "TY(x,y) :- R(x,y),S(y,z),T(x,z).",
+    "SM(x;w:long) :- R(x,y),S(y,z),T(x,z); w=<<SUM(z)>>.",
+    "MN(x;w:long) :- R(x,y),S(y,z),T(x,z); w=<<MIN(z)>>.",
+    "P(y,a) :- R(x,y),S(y,z),T(x,z),U(x,a)."])
+def test_materializing_query_on_card_matches_cpu(dev, q):
+    """The materializing pair route on the card: rows and dispatch
+    counters equal to the same engine on the CPU, through the kernel."""
+    src, dst = edge_list(powerlaw_graph(2000, 12, 2.0, seed=0))
+    common.reset_launches()
+    out = []
+    for device in ("cuda", "cpu"):
+        eng = Engine(backend="device", device=device)
+        eng.load_edges("Edge", src, dst)
+        for a in W.ALIASES:
+            eng.alias(a, "Edge")
+        res = eng.query(q)
+        summary = {k: v for k, v in eng.dispatch_summary().items()
+                   if not k.startswith("upload")}
+        out.append((res, summary))
+    (g, gsum), (c, csum) = out
+    assert gsum == csum
+    assert gsum["intersect.materialize_kernel"] > 0
+    for v in g.vars:
+        np.testing.assert_array_equal(g.columns[v], c.columns[v])
+    if c.annotation is not None:
+        np.testing.assert_array_equal(g.annotation, c.annotation)
+    assert common.LAUNCHES["materialize"] > 0
 
 
 @pytest.mark.parametrize("graph", [(300, 8, 2.0), (5000, 3, 2.5)])

@@ -2,7 +2,8 @@
 bitset cohort) and on a sparse graph whose uint cohort is non-empty (so
 the uint kernel's route is compared too): the port's
 ``Engine(backend="device", device="cpu")`` against the JAX
-``Engine(backend="device")``, results and dispatch counters equal."""
+``Engine(backend="device")``, results and whole dispatch summaries
+equal."""
 import numpy as np
 import pytest
 
@@ -13,12 +14,6 @@ from repro_torch.core.engine import Engine as TEngine
 
 QUERIES = ("TRIANGLE_COUNT", "TRIANGLE_LIST", "FOUR_CLIQUE", "LOLLIPOP",
            "BARBELL")
-COUNTERS = ("pipeline.launches", "extend.closing_syncs", "extend.host_syncs",
-            "pipeline.morsels", "pipeline.device_folds",
-            "pipeline.sideways_extends", "pipeline.retries",
-            "fold.pair_count_calls", "intersect.bitset_kernel",
-            "intersect.uint_kernel", "intersect.uint_search",
-            "intersect.uint_bitset")
 
 
 def edges(name):
@@ -59,8 +54,9 @@ def run_both(gname, qname):
     jres, tres = je.query(q), te.query(q)
     assert_same(tres, jres)
     jd, td = je.dispatch_summary(), te.dispatch_summary()
-    for k in COUNTERS:
-        assert td.get(k, 0) == jd.get(k, 0), k
+    # the whole summaries: these queries touch no port-only counter
+    assert td == jd
+    assert td["analysis.candidates_verified"] >= 1
     assert te.plan_metadata() == je.plan_metadata()
     return td
 

@@ -3,7 +3,10 @@ the blocked-bitset build, ``bitset_intersect_count``,
 ``intersect_count_uint``, and the Algorithm-3 cohort router
 ``HybridSetStore.intersect_count`` must give the same counts and the same
 cohort counters, on graphs whose pairs reach every cohort route (bitset,
-uint x bitset, uint kernel, uint search)."""
+uint x bitset, uint kernel, uint search); and
+``HybridSetStore.intersect_materialize`` the same matches, positions and
+counters with the materialize kernel injected (its plain version here)
+as without it."""
 import collections
 
 import numpy as np
@@ -15,11 +18,13 @@ from repro.core import layouts as jL
 from repro.core.trie import CSRGraph as jCSR
 from repro.data.graphs import powerlaw_graph as j_powerlaw
 from repro.kernels.bitset_intersect.ops import as_word_kernel
+from repro.kernels.materialize.ops import as_materialize_kernel
 from repro.kernels.uint_intersect.ops import intersect_count_csr_batched
 from repro_torch.core import intersect as tI
 from repro_torch.core import layouts as tL
 from repro_torch.core.trie import CSRGraph as tCSR
 from repro_torch.kernels.bitset_intersect.ops import bitset_and_popcount
+from repro_torch.kernels.materialize.ops import bitset_pair_materialize
 from repro_torch.kernels.uint_intersect.ops import intersect_count_csr
 
 ROUTE_KEYS = ("intersect.bitset_kernel", "intersect.uint_bitset",
@@ -86,6 +91,8 @@ def test_blocked_bitset_build_matches(name):
     for f in ("set_ids", "offsets", "block_ids", "words", "index",
               "slot_of"):
         np.testing.assert_array_equal(getattr(tb, f), getattr(jb, f))
+    np.testing.assert_array_equal(
+        tb.card, jI.popcount_u32_np(jb.words).sum(axis=1))
 
 
 @pytest.mark.parametrize("name", ["pl300", "pl5000"])
@@ -150,3 +157,37 @@ def test_hybrid_store_routes_and_counts_match(name, threshold):
     if threshold == 256.0:
         assert {"intersect.uint_search", "intersect.uint_kernel",
                 "intersect.uint_bitset"} <= routes
+
+
+@pytest.mark.parametrize("name,threshold", [
+    ("pl300", None), ("pl5000", None), ("hubs", 256.0)])
+@pytest.mark.parametrize("injected", [True, False])
+def test_hybrid_store_materialize_matches(name, threshold, injected):
+    """Dense x dense pairs through the injected kernel (or the host
+    extraction), the rest through the search path, merged back into the
+    canonical pair-major order: equal to the JAX store's, with its
+    ``intersect.materialize_*`` counters."""
+    s, d, n = graph_arrays(name)
+    jc, tc = jCSR.from_edges(s, d, n=n), tCSR.from_edges(s, d, n=n)
+    if threshold is None:
+        from repro.core.statistics import layout_threshold_for
+        from repro.core.trie import Trie
+        threshold = layout_threshold_for(Trie.from_edges("E", s, d))
+    js = jL.HybridSetStore.build(
+        jc, threshold=threshold,
+        materialize_kernel=as_materialize_kernel(True) if injected else None)
+    ts = tL.HybridSetStore.build(
+        tc, "cpu", threshold=threshold,
+        materialize_kernel=bitset_pair_materialize if injected else None)
+    js.counter, ts.counter = collections.Counter(), collections.Counter()
+    u, v = pairs_of(s, d, n)
+    want = js.intersect_materialize(u, v)
+    got = ts.intersect_materialize(u, v)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert dict(ts.counter) == dict(js.counter)
+    dense = ("intersect.materialize_kernel" if injected
+             else "intersect.materialize_bitset")
+    assert ts.counter[dense] > 0
+    if threshold == 256.0:
+        assert ts.counter["intersect.materialize_uint"] > 0

@@ -1,5 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and running a query
-and ``recursion.pagerank`` pulls in neither jax nor the ``repro`` package
+(with plan verification and the dispatch sanitizer), a materializing
+query, ``explain``, ``triangle_count_dense`` and ``recursion.pagerank``
+pulls in neither jax nor the ``repro`` package
 (checked in a fresh interpreter), the generated program imports
 ``repro_torch.core``, no module of the port (nor ``chip_smoke.py``) has an
 import of either, and every entry point runs on the card — and refuses to
@@ -23,11 +25,26 @@ from repro_torch.core import workload as W
 from repro_torch.core.engine import Engine
 from repro_torch.data.graphs import edge_list, powerlaw_graph
 src, dst = edge_list(powerlaw_graph(200, 6, 2.0, seed=1))
-eng = Engine(backend="device", device="cpu")
+eng = Engine(backend="device", device="cpu", sanitize=True)
 eng.load_edges("Edge", src, dst)
 for a in W.ALIASES:
     eng.alias(a, "Edge")
 count = int(eng.query(W.TRIANGLE_COUNT).scalar())
+source = eng.generated_source()
+rows = eng.query("TY(x,y) :- R(x,y),S(y,z),T(x,z).").num_rows
+summary = eng.dispatch_summary()
+assert summary["intersect.materialize_kernel"] > 0, summary
+assert summary["analysis.plans_verified"] >= 2, summary
+assert summary["analysis.sanitize_checks"] >= 2, summary
+assert "bag[R(x,y), S(y,z), T(x,z)]" in eng.explain(
+    "TY(x,y) :- R(x,y),S(y,z),T(x,z).")
+from repro_torch.graph.prune import prune_symmetric, symmetrize
+from repro_torch.kernels import triangle_count_dense
+from repro_torch.kernels.triangle_mm.ops import densify_csr
+pruned = prune_symmetric(symmetrize(src, dst, n=200))
+tri = triangle_count_dense(densify_csr(pruned.offsets, pruned.neighbors,
+                                       200), symmetric=False, device="cpu")
+assert int(tri) * 6 == count, (int(tri), count)
 from repro_torch.core import recursion
 from repro_torch.core.backend import DeviceBackend
 ranks = recursion.pagerank(powerlaw_graph(200, 6, 2.0, seed=1), iters=3,
@@ -35,8 +52,8 @@ ranks = recursion.pagerank(powerlaw_graph(200, 6, 2.0, seed=1), iters=3,
 assert ranks.shape == (200,)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"count": count, "leaked": leaked,
-                  "source": eng.generated_source()}))
+print(json.dumps({"count": count, "rows": rows, "leaked": leaked,
+                  "source": source}))
 """
 
 
@@ -48,6 +65,7 @@ def test_port_query_imports_neither_jax_nor_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["leaked"] == []
     assert res["count"] > 0
+    assert res["rows"] > 0
     assert "from repro_torch.core.gj import GenericJoin" in res["source"]
     assert "from repro." not in res["source"]
 
@@ -63,6 +81,10 @@ def _imports(path: Path):
 def test_no_port_module_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "analysis/plan_verify", "analysis/kernel_check",
+        "kernels/materialize/ops", "kernels/triangle_mm/ops")} <= names
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):

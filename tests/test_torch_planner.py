@@ -82,3 +82,18 @@ def test_plans_match(gname, qname):
     assert "from repro_torch.core." in tsrc
     assert "from repro.core." not in tsrc
     assert tsrc == jsrc.replace("repro.core.", "repro_torch.core.")
+
+
+@pytest.mark.parametrize("qname", sorted(QUERIES) + ["selection", "program"])
+def test_explain_matches(qname):
+    """``Engine.explain`` prints each rule's logical plan as the
+    reference does, for one rule and for a multi-rule program."""
+    text = {"selection": SELECTION,
+            "program": "N(x;c:long) :- Edge(x,y); c=<<COUNT(y)>>.\n"
+                       + jW.TRIANGLE_LIST}.get(qname)
+    if text is None:
+        text = getattr(jW, QUERIES[qname])
+    je, te = engines("powerlaw300")
+    got = te.explain(text)
+    assert got == je.explain(text)
+    assert got.count("order=") >= len(text.strip().splitlines())

@@ -56,15 +56,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    adjacency of ``prune_symmetric(symmetrize(powerlaw_graph(16_384, 20,
    2.2)))`` (16,384^2 float32) through ``triangle_mm``, equal to the
    device engine's TRIANGLE_COUNT on the symmetric graph divided by 6;
-7. every kernel is run again on the largest inputs its path gave it and
+7. recsys serving path, with every launch counter set to 0 just before
+   and read just after: the ``fm`` config at full width (39 fields x
+   1,000,000 rows x dim 10, a 1.56 GB float32 table, random weights from
+   ``torch.Generator("cuda").manual_seed(0)``) serves
+   ``RecsysBatchGen(39, 1_000_000, B, seed=0).batch_at(0)`` through
+   ``fm.forward`` at B = 512 (``serve_p99``) and 262,144 (``serve_bulk``),
+   warm walls from the host batch and with the ids on the card, one
+   profiled bulk forward (gather against ``fm_interaction``), the bulk
+   batch again through ``serve.batched_scores`` in chunks of 512, and
+   ``retrieval_scores`` for 16 user rows against 1,000,000 candidates;
+   logits (every p99 row, 4,096 bulk rows) and retrieval scores held
+   against a float64 oracle on the card (the pairwise O(F^2)
+   interaction) within ``rtol=1e-5, atol=1e-6``, every logit finite;
+8. every kernel is run again on the largest inputs its path gave it and
    held against its plain PyTorch version — bit for bit (``materialize``
    up to its total, ``triangle_mm`` against the float64 count), or for
-   ``spmv_ell`` within 1e-5 of each vertex's absolute sum, its two
-   launches bit-identical — and both are timed with CUDA events (L2
+   ``spmv_ell`` within 1e-5 of each vertex's absolute sum and for
+   ``fm_interaction`` within 1e-5 of each row's absolute scale, their
+   two launches bit-identical — and both are timed with CUDA events (L2
    flushed before each run); ``spmv_ell`` also beside one
    ``torch.sparse`` CSR product and ``triangle_mm`` beside
    ``(torch.matmul(A, A) * A).sum()`` (``library_ms``, used nowhere in
-   the port).
+   the port; no single PyTorch call computes the FM interaction).
 
 The last three lines of standard output are the kernel table (JSON), the
 card's ``name, power.limit`` from nvidia-smi, and the result line
@@ -109,6 +123,18 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
 F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores (0/1 exact)
+# FM serving (phase 7): the full-width fm config, 1 warm run then at least
+# 20 timed ones per wall; logits and retrieval scores against a float64
+# oracle on the card (the pairwise O(F^2) form for the interaction)
+FM_REPS = 21
+FM_ORACLE_ROWS = 4096
+FM_USERS = 16                  # user rows of a retrieval query
+FM_RTOL, FM_ATOL = 1e-5, 1e-6
+# fm_interaction against its plain version: |out - ref| per row over the
+# row's absolute scale 0.5 * sum_d((sum_f |e|)^2 + sum_f e^2) (the same
+# sums in another order; the sum-square form cancels, so the result
+# itself may lie near 0)
+FM_SCALE_REL = 1e-5
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "frontier_fill": ("src/repro_torch/csrc/frontier_fill.cu",
@@ -133,6 +159,10 @@ MAT_KERNELS = {
 TRI_KERNELS = {
     "triangle_mm": ("src/repro_torch/csrc/triangle_mm.cu",
                     "src/repro/kernels/triangle_mm/kernel.py:53"),
+}
+RECSYS_KERNELS = {
+    "fm_interaction": ("src/repro_torch/csrc/fm_interaction.cu",
+                       "src/repro/kernels/fm_interaction/kernel.py:33"),
 }
 
 
@@ -178,6 +208,22 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def device_events(prof, torch):
+    """(device us, count, name) of each kind of device event in a
+    ``torch.profiler`` run, longest first: device-side events only
+    (kernels and copies), since the CPU-side op records carry the same
+    device time again."""
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            kernels.append((us, ev.count, ev.key))
+    return sorted(kernels, reverse=True)
+
+
 def profile_query(eng, q, cache_cls, torch):
     """Where the time of one warm query goes: host functions by own time
     (cProfile) and device kernels by time (torch.profiler), beside the
@@ -199,17 +245,7 @@ def profile_query(eng, q, cache_cls, torch):
         torch.cuda.synchronize()
         pr.disable()
         wall = time.perf_counter() - t0
-    # device-side events only (kernels and copies): the CPU-side op
-    # records carry the same device time again
-    kernels = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            kernels.append((us, ev.count, ev.key))
-    kernels.sort(reverse=True)
+    kernels = device_events(prof, torch)
     device_us = sum(k[0] for k in kernels)
     copy_us = sum(k[0] for k in kernels if k[2].startswith("Memcpy"))
     log(f"[profile] wall {wall} s under both profilers; device busy "
@@ -552,6 +588,143 @@ def triangle_path(torch):
     return launches
 
 
+def warm_wall(fn, torch, reps=FM_REPS):
+    """Median host wall of ``reps`` calls of ``fn``, each ending in
+    ``torch.cuda.synchronize()``, after one untimed call."""
+    import numpy as np
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls))
+
+
+def recsys_path(torch):
+    """Phase 7: FM serving at full width on the card.  Returns the launch
+    counts of this path."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import RecsysBatchGen
+    from repro_torch.kernels import common
+    from repro_torch.kernels.fm_interaction.ref import \
+        fm_interaction_pairwise_ref
+    from repro_torch.models.recsys import fm
+    from repro_torch.serve import batched_scores
+
+    t_phase = time.perf_counter()
+    arch = get_arch("fm")
+    cfg = arch.config
+    p99 = arch.shape("serve_p99").params["batch"]
+    bulk = arch.shape("serve_bulk").params["batch"]
+    n_cand = arch.shape("retrieval_cand").params["n_candidates"]
+    t0 = time.perf_counter()
+    batches = {b: RecsysBatchGen(cfg.n_sparse, cfg.vocab_per_field, b,
+                                 seed=0).batch_at(0) for b in (p99, bulk)}
+    r = np.random.default_rng(0)
+    users = r.integers(0, cfg.total_rows, FM_USERS).astype(np.int32)
+    cands = r.integers(0, cfg.total_rows, n_cand).astype(np.int32)
+    log(f"[recsys] batches of {p99} and {bulk} rows and {n_cand} "
+        f"candidates made in {time.perf_counter() - t0:.2f} s")
+    common.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = fm.init(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[recsys] fm init: emb {tuple(params['emb'].shape)} "
+        f"{params['emb'].dtype}, {cfg.param_count()} parameters "
+        f"({cfg.param_count() * 4} bytes) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    logits = {}
+    for b, batch in batches.items():
+        on_card = {"ids": torch.as_tensor(batch["ids"], device="cuda")}
+        host_s = warm_wall(lambda: fm.forward(params, batch, cfg), torch)
+        card_s = warm_wall(lambda: fm.forward(params, on_card, cfg), torch)
+        logits[b] = fm.forward(params, on_card, cfg)
+        log(f"[recsys] forward B={b}: warm {card_s} s with the ids on the "
+            f"card ({b / card_s:.0f} rows/s), {host_s} s from the host "
+            f"batch with its upload ({b / host_s:.0f} rows/s); median of "
+            f"{FM_REPS}")
+    ids = torch.as_tensor(batches[bulk]["ids"], device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fm.forward(params, {"ids": ids}, cfg)
+        torch.cuda.synchronize()
+    events = device_events(prof, torch)
+    device_us = sum(e[0] for e in events)
+    log(f"[recsys] profile of one forward B={bulk}: device busy "
+        f"{device_us / 1e3:.4f} ms")
+    for us, count, key in events[:8]:
+        log(f"[recsys] device {us / 1e3:.4f} ms "
+            f"({100 * us / device_us:.1f}%) x{count} {key[:90]}")
+
+    t0 = time.perf_counter()
+    chunked = batched_scores(lambda c: fm.forward(params, c, cfg),
+                             {"ids": ids}, p99)
+    chunk_s = time.perf_counter() - t0
+    one = logits[bulk].cpu().numpy()
+    same = bool(np.array_equal(chunked, one))
+    log(f"[recsys] batched_scores: {bulk} rows in chunks of {p99} in "
+        f"{chunk_s} s ({bulk / chunk_s:.0f} rows/s); "
+        f"{'bit-equal to' if same else 'differs from'} the one-call "
+        f"forward (max |diff| {float(np.abs(chunked - one).max())})")
+    check(np.allclose(chunked, one, rtol=FM_RTOL, atol=FM_ATOL),
+          "batched_scores differs from the one-call forward")
+
+    users_t = torch.as_tensor(users, device="cuda")
+    cands_t = torch.as_tensor(cands, device="cuda")
+    ret_s = warm_wall(
+        lambda: fm.retrieval_scores(params, users_t, cands_t, cfg), torch)
+    scores = fm.retrieval_scores(params, users_t, cands_t, cfg)
+    log(f"[recsys] retrieval_scores: {FM_USERS} user rows x {n_cand} "
+        f"candidates, warm {ret_s} s ({n_cand / ret_s:.0f} candidates/s)")
+
+    # float64 oracle on the card: every p99 row and FM_ORACLE_ROWS rows of
+    # the bulk batch, the interaction by the pairwise O(F^2) form
+    emb, w_lin = params["emb"], params["w_lin"]
+    base = torch.arange(cfg.n_sparse, device="cuda") * cfg.vocab_per_field
+    sample = {p99: np.arange(p99),
+              bulk: np.sort(np.random.default_rng(1).choice(
+                  bulk, FM_ORACLE_ROWS, replace=False))}
+    for b, rows in sample.items():
+        got = logits[b]
+        check(got.shape == (b,) and got.dtype == torch.float32,
+              f"forward B={b} gave {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()),
+              f"forward B={b} gave a value that is not finite")
+        g = torch.as_tensor(batches[b]["ids"][rows], device="cuda").long() \
+            + base
+        want = (params["w0"].double() + w_lin[g].double().sum(dim=1)
+                + fm_interaction_pairwise_ref(emb[g].double()))
+        got = got[torch.as_tensor(rows, device="cuda")].double()
+        err = float((got - want).abs().max())
+        log(f"[recsys] forward B={b}: {len(rows)} rows against the float64 "
+            f"oracle, max |err| {err}, logits in "
+            f"[{float(want.min())}, {float(want.max())}]")
+        check(torch.allclose(got, want, rtol=FM_RTOL, atol=FM_ATOL),
+              f"forward B={b} differs from the float64 oracle")
+    c64 = emb[cands_t.long()].double()
+    want = c64 @ emb[users_t.long()].double().sum(dim=0) \
+        + w_lin[cands_t.long()].double()
+    err = float((scores.double() - want).abs().max())
+    log(f"[recsys] retrieval against the float64 oracle: max |err| {err}")
+    check(bool(torch.isfinite(scores).all()) and scores.shape == (n_cand,),
+          "retrieval scores not finite or of the wrong shape")
+    check(torch.allclose(scores.double(), want, rtol=FM_RTOL, atol=FM_ATOL),
+          "retrieval scores differ from the float64 oracle")
+    launches = dict(common.LAUNCHES)
+    log(f"[recsys] phase {time.perf_counter() - t_phase:.2f} s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB; launches {json.dumps(launches)}")
+    return launches
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -572,6 +745,9 @@ def main():
     from repro_torch.kernels.bitset_intersect import ops as bitset_ops
     from repro_torch.kernels.bitset_intersect.ref import \
         bitset_and_popcount_ref
+    from repro_torch.kernels.fm_interaction import ops as fm_ops
+    from repro_torch.kernels.fm_interaction.ref import (fm_interaction_ref,
+                                                        fm_interaction_scale)
     from repro_torch.kernels.frontier_fill import ops as fill_ops
     from repro_torch.kernels.frontier_fill.ref import fill_ref, fold_ref
     from repro_torch.kernels.materialize import ops as mat_ops
@@ -703,11 +879,20 @@ def main():
     captures["triangle_mm"].restore()
     for name in TRI_KERNELS:
         check(tri_launches.get(name, 0) > 0, f"kernel {name} never launched")
+
+    # ----------------------------------------------- 7. recsys serving path
+    captures["fm_interaction"] = Capture(fm_ops, "fm_interaction",
+                                         lambda e: int(e.shape[0]))
+    fm_launches = recsys_path(torch)
+    captures["fm_interaction"].restore()
+    for name in RECSYS_KERNELS:
+        check(fm_launches.get(name, 0) > 0, f"kernel {name} never launched")
     path_launches = collections.Counter()
-    for counts in (launches, rec_launches, mat_launches, tri_launches):
+    for counts in (launches, rec_launches, mat_launches, tri_launches,
+                   fm_launches):
         path_launches.update(counts)
 
-    # ---------------------------------- 7. kernels against plain versions
+    # ---------------------------------- 8. kernels against plain versions
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def time_ms(fn, reps):
@@ -751,7 +936,8 @@ def main():
 
     rows = []
     for name, (source, replaces) in {**KERNELS, **RECURSION_KERNELS,
-                                     **MAT_KERNELS, **TRI_KERNELS}.items():
+                                     **MAT_KERNELS, **TRI_KERNELS,
+                                     **RECSYS_KERNELS}.items():
         args = captures[name].args
         library_ms = None
         reps, plain_reps = 20, 5
@@ -844,6 +1030,17 @@ def main():
             shape = (f"n={n} nonzeros={nnz}; the dense product's 2n^3 "
                      f"at the bf16 rate would take "
                      f"{2 * n ** 3 / BF16_OPS_PER_S * 1e3:.4f} ms")
+        elif name == "fm_interaction":
+            (e,) = args
+            kern = lambda: fm_ops.fm_interaction(e)               # noqa: E731
+            plain = lambda: fm_interaction_ref(e)                 # noqa: E731
+            # each element read once, each row's result written once; a
+            # sum, a square and its sum per element
+            moved = nbytes(e) + int(e.shape[0]) * 4
+            ops = 3 * e.numel()
+            bound_ops_per_s = F32_OPS_PER_S
+            shape = (f"rows={int(e.shape[0])} fields={int(e.shape[1])} "
+                     f"dim={int(e.shape[2])}")
         else:
             offs, nbr, u, v = args
             kern = lambda: uint_ops.intersect_count_csr(*args)    # noqa: E731
@@ -909,6 +1106,21 @@ def main():
             shape += (f"; raw count {int(got)}, equal to the float64 plain "
                       f"version, two launches equal; torch.matmul "
                       f"{library_ms:.4f} ms (gives {lib})")
+        elif name == "fm_interaction":
+            got, want = kern(), plain()
+            check(torch.equal(got, kern()), "fm_interaction: two launches "
+                                            "differ")
+            diff = (got - want).abs()
+            err = float(diff.max())
+            rel = float((diff / fm_interaction_scale(e).clamp_min(1e-30))
+                        .max())
+            check(rel <= FM_SCALE_REL,
+                  f"fm_interaction differs from its plain version: {rel} of "
+                  f"the row's absolute scale (limit {FM_SCALE_REL})")
+            shape += (f"; max |err| {err} = {rel} of the row's absolute "
+                      f"scale (limit {FM_SCALE_REL}), two launches "
+                      "bit-identical; no single PyTorch call computes this "
+                      "function, so library_ms is null")
         else:
             err = max_err(flat(name, kern()), flat(name, plain()))
             check(err == 0, f"{name} differs from its plain version (max "

@@ -1,1 +1,5 @@
+"""Data generators of the port: the synthetic power-law graphs of
+``repro.data.graphs`` and the recsys batches of ``repro.data.recsys``,
+copied (numpy only) so the port needs nothing of ``repro``."""
 from repro_torch.data.graphs import edge_list, powerlaw_graph  # noqa: F401
+from repro_torch.data.recsys import RecsysBatchGen  # noqa: F401

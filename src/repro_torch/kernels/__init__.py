@@ -16,5 +16,9 @@ and the on-card oracle):
                     ranks
   triangle_mm       dense-cohort triangle count sum((A@A)*A) — tiled
                     float32 product, masked integer reduction
+  fm_interaction    the Factorization Machine's second-order term by the
+                    sum-square trick — a lane group per row's columns,
+                    several rows a warp
 """
+from repro_torch.kernels.fm_interaction.ops import fm_interaction  # noqa: F401
 from repro_torch.kernels.triangle_mm.ops import triangle_count_dense  # noqa: F401

@@ -40,7 +40,7 @@ COUNT_LIMIT = (1 << 31) - 1
 LAUNCHES: Dict[str, int] = collections.Counter()
 
 KERNEL_SOURCES = ("frontier_fill", "bitset_intersect", "uint_intersect",
-                  "spmv_ell", "materialize", "triangle_mm")
+                  "spmv_ell", "materialize", "triangle_mm", "fm_interaction")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"

@@ -1,12 +1,13 @@
 """The port's CUDA kernels on the card: each integer kernel bit-equal to
 its plain PyTorch version (``materialize`` up to its total, ``triangle_mm``
 to the plain float64 count) (``spmv_ell`` within float32 rounding of it, and
-bit-equal to itself from launch to launch), one launch counted per launch,
+bit-equal to itself from launch to launch; ``fm_interaction`` within 1e-5
+of each row's absolute scale), one launch counted per launch,
 no plain fallback for a CUDA tensor, the entry points on the card by
-default, and the device engine on the card equal to the same engine on the
-CPU and to the host oracle.  Marked ``cuda``; every test skips without a card.  Run on a
-machine with one: ``PYTHONPATH=src python -m pytest -q -m cuda
-tests/test_torch_cuda.py``."""
+default, and the device engine and the FM serving path on the card equal
+to the same code on the CPU (and the engine to the host oracle).  Marked
+``cuda``; every test skips without a card.  Run on a machine with one:
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
 import pytest
 import torch
@@ -17,6 +18,9 @@ from repro_torch.data.graphs import edge_list, powerlaw_graph
 from repro_torch.kernels import common
 from repro_torch.kernels.bitset_intersect import ops as bitset_ops
 from repro_torch.kernels.bitset_intersect.ref import bitset_and_popcount_ref
+from repro_torch.kernels.fm_interaction import ops as fm_kernel_ops
+from repro_torch.kernels.fm_interaction.ref import (fm_interaction_ref,
+                                                    fm_interaction_scale)
 from repro_torch.kernels.frontier_fill import ops as fill_ops
 from repro_torch.kernels.frontier_fill.ref import fill_ref, fold_ref
 from repro_torch.kernels.materialize import ops as mat_ops
@@ -358,3 +362,77 @@ def test_engine_recursion_on_card_matches_host_oracle(dev, prog):
     assert gd["recursion.device_fixpoints"] == 1
     assert gd["recursion.device_rounds"] == hd["recursion.host_rounds"]
     assert gd.get("recursion.host_rounds", 0) == 0
+
+
+@pytest.mark.parametrize("b,f,d", [(1, 2, 4), (33, 39, 10), (128, 16, 32),
+                                   (7, 8, 8), (1000, 39, 10), (50, 3, 70)])
+def test_fm_interaction_kernel_matches_plain(dev, b, f, d):
+    """Within 1e-5 of each row's absolute scale of the plain version (the
+    same float32 sums in another order), one launch, the same bits from
+    launch to launch; a non-contiguous input is made contiguous."""
+    r = np.random.default_rng(b + f + d)
+    emb = torch.as_tensor(r.normal(size=(b, f, d)).astype(np.float32),
+                          device=dev)
+    before = common.LAUNCHES["fm_interaction"]
+    got = fm_kernel_ops.fm_interaction(emb)
+    assert common.LAUNCHES["fm_interaction"] == before + 1
+    assert got.device.type == "cuda" and got.shape == (b,)
+    assert torch.equal(got, fm_kernel_ops.fm_interaction(emb))
+    want = fm_interaction_ref(emb)
+    assert bool(((got - want).abs()
+                 <= 1e-5 * fm_interaction_scale(emb)).all())
+    t = emb.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not t.is_contiguous()
+    assert torch.equal(fm_kernel_ops.fm_interaction(t), got)
+
+
+def test_fm_interaction_kernel_edge_cases(dev):
+    before = common.LAUNCHES["fm_interaction"]
+    out = fm_kernel_ops.fm_interaction(torch.zeros((0, 39, 10), device=dev))
+    assert out.shape == (0,) and out.device.type == "cuda"
+    assert common.LAUNCHES["fm_interaction"] == before   # no empty grid
+    # no backward yet: a raw launch would drop the gradient silently
+    emb = torch.ones((4, 3, 2), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fm_kernel_ops.fm_interaction(emb)
+    with torch.inference_mode():
+        assert fm_kernel_ops.fm_interaction(emb).tolist() == [6.0] * 4
+
+
+def test_fm_serving_on_card_matches_cpu(dev):
+    """``forward``, ``retrieval_scores`` and ``batched_scores`` with the
+    params on the card (the kernel) against the same calls on the CPU
+    (the plain version), NaN in the same places for out-of-range ids;
+    ``init`` goes to the card by default."""
+    from repro_torch.data import RecsysBatchGen
+    from repro_torch.models.recsys import fm
+    from repro_torch.serve import batched_scores
+    cfg = fm.FMConfig(name="t", n_sparse=39, vocab_per_field=1000,
+                      embed_dim=10)
+    p = fm.init(cfg, torch.Generator("cuda").manual_seed(0))
+    assert p["emb"].device.type == "cuda"
+    w = {k: v.cpu().numpy() for k, v in p.items()}
+    cpu = fm.params_from_reference(w, device="cpu")
+    card = fm.params_from_reference(w)
+    ids = RecsysBatchGen(39, 1000, 3000, seed=1).batch_at(0)["ids"]
+    ids[5, 0], ids[6, 38], ids[7, 1] = -1, 1000, -(10 ** 6)
+    before = common.LAUNCHES["fm_interaction"]
+    got = fm.forward(card, {"ids": ids}, cfg)
+    assert common.LAUNCHES["fm_interaction"] == before + 1
+    want = fm.forward(cpu, {"ids": ids}, cfg)
+    assert torch.isnan(got).cpu().tolist() == torch.isnan(want).tolist()
+    assert torch.isnan(want).sum() == 2
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6,
+                               equal_nan=True)
+    bulk = batched_scores(lambda c: fm.forward(card, c, cfg),
+                          {"ids": torch.as_tensor(ids, device=dev)}, 512)
+    assert isinstance(bulk, np.ndarray)
+    np.testing.assert_allclose(bulk, want.numpy(), rtol=1e-5, atol=1e-6)
+    r = np.random.default_rng(2)
+    users = r.integers(0, cfg.total_rows, 16).astype(np.int32)
+    cands = r.integers(-cfg.total_rows - 5, cfg.total_rows + 5, 5000) \
+        .astype(np.int32)
+    torch.testing.assert_close(
+        fm.retrieval_scores(card, users, cands, cfg).cpu(),
+        fm.retrieval_scores(cpu, users, cands, cfg), rtol=1e-5, atol=1e-6,
+        equal_nan=True)

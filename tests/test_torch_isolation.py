@@ -1,7 +1,8 @@
 """The port stands alone: importing ``repro_torch`` and running a query
 (with plan verification and the dispatch sanitizer), a materializing
-query, ``explain``, ``triangle_count_dense`` and ``recursion.pagerank``
-pulls in neither jax nor the ``repro`` package
+query, ``explain``, ``triangle_count_dense``, ``recursion.pagerank`` and
+the FM serving path (``forward``, ``batched_scores``,
+``retrieval_scores``) pulls in neither jax nor the ``repro`` package
 (checked in a fresh interpreter), the generated program imports
 ``repro_torch.core``, no module of the port (nor ``chip_smoke.py``) has an
 import of either, and every entry point runs on the card — and refuses to
@@ -50,6 +51,20 @@ from repro_torch.core.backend import DeviceBackend
 ranks = recursion.pagerank(powerlaw_graph(200, 6, 2.0, seed=1), iters=3,
                            backend=DeviceBackend(device="cpu"))
 assert ranks.shape == (200,)
+from repro_torch.configs import get_arch
+from repro_torch.data import RecsysBatchGen
+from repro_torch.models.recsys import fm
+from repro_torch.serve import batched_scores
+import dataclasses, torch
+cfg = dataclasses.replace(get_arch("fm").config, vocab_per_field=100)
+params = fm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+batch = RecsysBatchGen(cfg.n_sparse, 100, 64, seed=0).batch_at(0)
+logits = fm.forward(params, batch, cfg)
+bulk = batched_scores(lambda c: fm.forward(params, c, cfg),
+                      {"ids": batch["ids"]}, 16)
+assert np.array_equal(bulk, logits.numpy()), (bulk, logits)
+scores = fm.retrieval_scores(params, np.arange(16), np.arange(500), cfg)
+assert scores.shape == (500,) and bool(torch.isfinite(scores).all())
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"count": count, "rows": rows, "leaked": leaked,
@@ -84,7 +99,9 @@ def test_no_port_module_imports_jax_or_repro():
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {f"src/repro_torch/{m}.py" for m in (
         "analysis/plan_verify", "analysis/kernel_check",
-        "kernels/materialize/ops", "kernels/triangle_mm/ops")} <= names
+        "kernels/materialize/ops", "kernels/triangle_mm/ops",
+        "kernels/fm_interaction/ops", "models/recsys/fm", "data/recsys",
+        "serve/engine", "configs/fm")} <= names
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):
@@ -105,15 +122,16 @@ def test_device_backend_needs_a_card(monkeypatch):
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """With no backend and no device named, the engine, the join and the
-    recursion entry points go to ``cuda`` and raise without a card; the
-    CPU is taken only when asked for."""
+    """With no backend and no device named, the engine, the join, the
+    recursion entry points and ``fm.init`` go to ``cuda`` and raise
+    without a card; the CPU is taken only when asked for."""
     from repro_torch.core import recursion
     from repro_torch.core.backend import (DeviceBackend, NumpyBackend,
                                           make_backend)
     from repro_torch.core.engine import Engine
     from repro_torch.core.gj import GenericJoin
     from repro_torch.core.trie import CSRGraph, Trie
+    from repro_torch.models.recsys import fm
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     csr = CSRGraph.from_edges([0, 1], [1, 0])
@@ -122,7 +140,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: GenericJoin([(edge, ("x", "y"))], ("x", "y"),
                                      ("x", "y")),
                  lambda: recursion.pagerank(csr),
-                 lambda: recursion.sssp(csr, 0)):
+                 lambda: recursion.sssp(csr, 0),
+                 lambda: fm.init(fm.FMConfig(name="t", vocab_per_field=5),
+                                 torch.Generator())):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             call()
     assert isinstance(make_backend("numpy"), NumpyBackend)

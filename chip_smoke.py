@@ -35,10 +35,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its device loop;
    ``recursion.pagerank(iters=5, backend=DeviceBackend())`` on
    ``powerlaw_graph(2_000_000, 20, 2.2, seed=0)`` (37,230,744 directed
-   edges) through ``spmv_ell`` (5 launches, ``spmv.ell_kernel`` 5), held
-   against ``pagerank_np``; ``recursion.sssp`` on the full-size graph,
-   exact against ``sssp_np``, and ``recursion.fixpoint`` with a tolerance
-   (min-plus hop distances, one host read per 8 steps) equal to it;
+   edges), packed at width 1 (the CSR itself, one slot an edge), through
+   the merge-path ``spmv_ell`` (5 launches, ``spmv.ell_kernel`` 5), held
+   against ``pagerank_np``, and that packing timed against the general
+   scatter's arrays at width 1, which it must equal; ``recursion.sssp``
+   on the full-size graph, exact against ``sssp_np``, and
+   ``recursion.fixpoint`` with a tolerance (min-plus hop distances, one
+   host read per 8 steps) equal to it;
 5. materializing path, with every launch counter set to 0 just before
    and read just after: on the full-size graph ``Engine(backend="device")``
    runs ``TY(x,y)`` and ``SM(x; SUM(z))`` over the triangle (cold, then
@@ -72,11 +75,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 8. every kernel is run again on the largest inputs its path gave it and
    held against its plain PyTorch version — bit for bit (``materialize``
    up to its total, ``triangle_mm`` against the float64 count), or for
-   ``spmv_ell`` within 1e-5 of each vertex's absolute sum and for
-   ``fm_interaction`` within 1e-5 of each row's absolute scale, their
-   two launches bit-identical — and both are timed with CUDA events (L2
-   flushed before each run); ``spmv_ell`` also beside one
-   ``torch.sparse`` CSR product and ``triangle_mm`` beside
+   ``spmv_ell`` within 1e-5 of each vertex's absolute sum of the plain
+   version's sums taken in float64 (the float32 plain version's own
+   distance from them is printed: on the width-1 packing it adds a hub's
+   terms one by one) and for ``fm_interaction`` within 1e-5 of each
+   row's absolute scale, their two launches bit-identical — and both are
+   timed with CUDA events (L2 flushed before each run); ``spmv_ell``
+   (the merge-path kernel on the large graph's width-1 packing, whose
+   slots are its entries) also beside one ``torch.sparse`` CSR product,
+   and timed once more on the width-32 split packing of the same graph
+   (a printed line, not a table row), and ``triangle_mm`` beside
    ``(torch.matmul(A, A) * A).sum()`` (``library_ms``, used nowhere in
    the port; no single PyTorch call computes the FM interaction).
 
@@ -116,8 +124,9 @@ PR_ITERS = 5
 # from run to run (the engine) or that differs from a float64 oracle's
 # (recursion.pagerank); relative error, largest over the vertices
 PR_REL_LIMIT = 1e-4
-# spmv_ell against its plain version: |y - ref| per vertex over the
-# vertex's absolute sum (the same sums, taken in another order)
+# spmv_ell against its plain version's sums taken in float64: |y - ref|
+# per vertex over the vertex's absolute sum (the same sums, in another
+# order and in float32)
 ELL_REL_LIMIT = 1e-5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
@@ -164,6 +173,22 @@ RECSYS_KERNELS = {
     "fm_interaction": ("src/repro_torch/csrc/fm_interaction.cu",
                        "src/repro/kernels/fm_interaction/kernel.py:33"),
 }
+
+
+def spmv_ell_f64(cols, vals, row_ptr, x):
+    """The plain ELL SpMV's sums taken in float64: the exact value the
+    float32 kernel is held against (the float32 plain version adds a
+    hub's hundreds of thousands of terms one by one with atomics, so its
+    own sums are off by more than the limit and differ from run to
+    run)."""
+    import torch
+    part = (x.double()[cols.long()] * vals.double()).sum(dim=1)
+    n = int(row_ptr.shape[0]) - 1
+    owner = torch.repeat_interleave(
+        torch.arange(n, device=x.device), (row_ptr[1:] - row_ptr[:-1]).long(),
+        output_size=int(cols.shape[0]))
+    return torch.zeros(n, dtype=torch.float64,
+                       device=x.device).index_add_(0, owner, part)
 
 
 def log(msg):
@@ -308,6 +333,7 @@ def recursion_path(src, dst, g, torch):
     from repro_torch.core.semiring import MIN_PLUS
     from repro_torch.data.graphs import powerlaw_graph
     from repro_torch.kernels import common
+    from repro_torch.kernels.spmv_ell import ops as ell_ops
 
     hub = int(np.argmax(g.degrees))
     programs = (("PAGERANK", W.pagerank_program(PR_ITERS), "naive"),
@@ -403,6 +429,26 @@ def recursion_path(src, dst, g, torch):
     check(common.LAUNCHES["spmv_ell"] == PR_ITERS,
           f"spmv_ell launched {common.LAUNCHES['spmv_ell']} times, not "
           f"{PR_ITERS}")
+    # what the width-1 shortcut saves over the general packing's scatter
+    # on the same graph (host only, no launch)
+    pack_s = {}
+    for name, pack in (("cast", lambda: ell_ops.csr_to_ell_split(
+                           g2.offsets, g2.neighbors, width=1)),
+                       ("scatter", lambda: ell_ops._scatter_split(
+                           g2.offsets, g2.neighbors, None, 1))):
+        took, packed = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            packed = pack()
+            took.append(time.perf_counter() - t0)
+        pack_s[name] = (float(np.median(took)), packed)
+    same = all(np.array_equal(a, b) for a, b in
+               zip(pack_s["cast"][1], pack_s["scatter"][1]))
+    check(same, "the width-1 packing differs from the general scatter's")
+    log(f"[recursion] width-1 packing of the {g2.m}-edge graph (median of "
+        f"3): {pack_s['cast'][0]} s as a cast of the CSR, "
+        f"{pack_s['scatter'][0]} s through the general scatter; equal")
+    del pack_s
 
     t0 = time.perf_counter()
     dist = recursion.sssp(g, hub)
@@ -998,6 +1044,9 @@ def main():
                      f"entries={nnz} outputs={n_out}; bound with the "
                      f"padding read {padded / HBM_BYTES_PER_S * 1e6:.2f} "
                      f"us ({padded} bytes)")
+            # recursion.pagerank packs the CSR itself: no padding slot
+            check(cols.numel() == nnz, "spmv_ell's largest call reads "
+                                       "padding slots")
         elif name == "materialize":
             words, block_ids, index, pa, pb, pid, cap = args
             kern = lambda: mat_ops.materialize(*args)             # noqa: E731
@@ -1061,12 +1110,15 @@ def main():
             got, want = kern(), plain()
             check(torch.equal(got, kern()), "spmv_ell: two launches differ")
             abs_sum = spmv_ell_ref(cols, vals.abs(), row_ptr, x.abs())
-            diff = (got - want).abs()
-            err = float(diff.max())
-            rel = float((diff / abs_sum.clamp_min(1e-30)).max())
+            scale = abs_sum.double().clamp_min(1e-30)
+            exact = spmv_ell_f64(cols, vals, row_ptr, x)
+            err = float((got - want).abs().max())
+            rel = float(((got.double() - exact).abs() / scale).max())
+            plain_rel = float(((want.double() - exact).abs() / scale).max())
             check(rel <= ELL_REL_LIMIT,
-                  f"spmv_ell differs from its plain version: {rel} of the "
-                  f"absolute sum (limit {ELL_REL_LIMIT})")
+                  f"spmv_ell differs from the plain version's sums in "
+                  f"float64: {rel} of the absolute sum (limit "
+                  f"{ELL_REL_LIMIT})")
             a = torch.sparse_csr_tensor(
                 torch.as_tensor(g2.offsets, device="cuda"),
                 torch.as_tensor(g2.neighbors.astype(np.int64),
@@ -1076,14 +1128,28 @@ def main():
             check(n_out == g2.n, "spmv_ell's largest call is not the "
                                  "large graph's")
             lib = torch.mv(a, x)
-            lib_rel = float(((lib - want).abs()
-                             / abs_sum.clamp_min(1e-30)).max())
+            lib_rel = float(((lib.double() - exact).abs() / scale).max())
             library_ms = time_ms(lambda: torch.mv(a, x), 20)
-            shape += (f"; max |err| {err} = {rel} of the absolute sum "
-                      f"(limit {ELL_REL_LIMIT}), two launches bit-identical;"
-                      f" torch.sparse {library_ms:.4f} ms ({lib_rel} of "
-                      "the absolute sum)")
-            del a, lib
+            shape += (f"; within {rel} of the absolute sum of the sums in "
+                      f"float64 (limit {ELL_REL_LIMIT}; the float32 plain "
+                      f"version {plain_rel}, max |kernel - plain| {err}), "
+                      f"two launches bit-identical; torch.sparse "
+                      f"{library_ms:.4f} ms ({lib_rel} of the absolute sum)")
+            del a, lib, exact
+            # the same graph packed at width 32 (long rows split, the last
+            # row of each vertex padded): what the layout buys, apart from
+            # the kernel; a printed line, not a row of the table
+            split = [torch.as_tensor(t, device="cuda") for t in
+                     ell_ops.csr_to_ell_split(g2.offsets, g2.neighbors,
+                                              width=32)]
+            split_rel = float(((ell_ops.spmv_ell(*split, x).double()
+                                - spmv_ell_f64(*split, x)).abs()
+                               / scale).max())
+            split_ms = time_ms(lambda: ell_ops.spmv_ell(*split, x), 20)
+            log(f"[kernel] spmv_ell on the width-32 split packing of the "
+                f"same graph ({split[0].numel()} slots for {nnz} entries): "
+                f"{split_ms:.4f} ms, {split_rel} of the absolute sum")
+            del split
         elif name == "materialize":
             got, want = kern(), plain()
             check(int(got[0]) == int(want[0]) == total,

@@ -77,8 +77,8 @@ def pagerank(csr: CSRGraph, iters: int = 5, damping: float = 0.85,
     The body is a (+,*) join-aggregate = SpMV with InvDeg folded into the
     propagated value.  Runs on ``backend.device`` when a backend is
     given, else on ``device`` (``cuda`` when None).  On the card, or under
-    the device backend, the SpMV is the ELL kernel over the port's
-    fixed-width packing (a backend's ``spmv.ell_kernel`` counts its
+    the device backend, the SpMV is the ELL kernel over the width-1
+    packing, the CSR itself (a backend's ``spmv.ell_kernel`` counts its
     rounds); only on the CPU without the device backend is it the
     segment-sum SpMV, as in the reference.  No host read until the
     closing transfer.
@@ -97,7 +97,8 @@ def pagerank(csr: CSRGraph, iters: int = 5, damping: float = 0.85,
         from repro_torch.kernels.spmv_ell.ops import (csr_to_ell_split,
                                                       spmv_ell)
         cols, vals, row_ptr = (torch.as_tensor(a, device=dev) for a in
-                               csr_to_ell_split(csr.offsets, csr.neighbors))
+                               csr_to_ell_split(csr.offsets, csr.neighbors,
+                                                width=1))
         if backend is not None:
             backend.stats["spmv.ell_kernel"] += iters
 

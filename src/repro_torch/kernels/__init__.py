@@ -9,8 +9,9 @@ and the on-card oracle):
                     the device terminal fold (``fold``)
   bitset_intersect  paper §4.2 BITSET∩BITSET — AND + __popc
   uint_intersect    paper §4.2 UINT∩UINT     — warp-per-pair search
-  spmv_ell          PageRank's SpMV over fixed-width ELL rows — warp per
-                    row, then a warp per vertex over its split rows
+  spmv_ell          PageRank's SpMV over the CSR (or any ELL packing) —
+                    merge-path blocks over row ends and slots, a
+                    segmented scan, a fix-up of rows crossing blocks
   materialize       paper §4.2/Fig 6 materializing BITSET∩BITSET — count
                     then fill, a warp per matched block pair, popcount
                     ranks

@@ -1,17 +1,22 @@
 """Wrapper of the ELL SpMV CUDA kernel (``csrc/spmv_ell.cu``) and the CSR
 to ELL packings; counterpart of ``repro.kernels.spmv_ell.ops``.
 
-``csr_to_ell`` is the reference's packing (width = the largest degree),
-kept so the two packages can be compared.  On a power-law graph that
-width is the hub's degree for every row (45,468 slots on
-``powerlaw_graph(200_000, 20, 2.2)``, about 73 GB), so the port's own
-packing, ``csr_to_ell_split``, is fixed-width: a vertex of degree d takes
-``ceil(d / width)`` consecutive ELL rows, ``row_ptr[i]:row_ptr[i+1]``.
+``spmv_ell(cols, vals, row_ptr, x)`` reads a packing as one flat run of
+slots: ``y[i] = sum of vals.flat[s] * x[cols.flat[s]]`` for ``s`` in
+``[row_ptr[i] * W, row_ptr[i+1] * W)``.  Three packings feed it:
 
-``spmv_ell(cols, vals, row_ptr, x)`` returns ``y [n]`` with
-``y[i] = sum over r in row_ptr[i]:row_ptr[i+1] of
-sum_k vals[r,k] * x[cols[r,k]]``; ``row_ptr = arange(n + 1)`` reads the
-reference's one-row-per-vertex packing.
+* ``csr_to_ell``, the reference's (one row per vertex, width = the
+  largest degree), kept so the two packages can be compared; on a
+  power-law graph that width is the hub's degree for every row (45,468
+  slots on ``powerlaw_graph(200_000, 20, 2.2)``, about 73 GB);
+* ``csr_to_ell_split`` at a fixed width: a vertex of degree d takes
+  ``ceil(d / width)`` consecutive rows, ``row_ptr[i]:row_ptr[i+1]``;
+* ``csr_to_ell_split(..., width=1)``, the CSR itself (``cols`` the
+  neighbours, ``row_ptr`` the offsets), with no padding slot:
+  ``recursion.pagerank`` packs so.
+
+The kernel balances the work over the merge of row ends and slots
+(merge-path), reading each slot once, whatever the packing.
 """
 from __future__ import annotations
 
@@ -24,7 +29,6 @@ from repro_torch.kernels import common
 from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
 
 NAME = "spmv_ell"
-ELL_WIDTH = 32   # one warp lane per slot
 
 
 def csr_to_ell(offsets, neighbors, values=None, k: int | None = None):
@@ -47,13 +51,30 @@ def csr_to_ell(offsets, neighbors, values=None, k: int | None = None):
     return cols, vals
 
 
-def csr_to_ell_split(offsets, neighbors, values=None,
-                     width: int = ELL_WIDTH):
+def csr_to_ell_split(offsets, neighbors, values=None, *, width: int):
     """Fixed-width ELL packing with long rows split: returns ``(cols
     [R,width] int32, vals [R,width] f32, row_ptr [n+1] int32)``.  Vertex
     i's slots fill ELL rows ``row_ptr[i]:row_ptr[i+1]`` in CSR order, the
     last row padded with column 0 / weight 0; an isolated vertex takes no
-    row."""
+    row.  At width 1 that is the CSR cast and reshaped, the same arrays
+    ``_scatter_split`` makes, without its scatter of every entry
+    (``chip_smoke.py`` times both on its 37M-entry graph); weights
+    default to 1.0."""
+    if width != 1:
+        return _scatter_split(offsets, neighbors, values, width)
+    offsets = np.asarray(offsets, dtype=np.int64)
+    m = len(neighbors)
+    if m > np.iinfo(np.int32).max:
+        raise ValueError(f"{m} ELL rows exceed int32 slots")
+    vals = (np.ones(m, dtype=np.float32) if values is None
+            else np.asarray(values, dtype=np.float32))
+    return (np.asarray(neighbors).astype(np.int32, copy=False).reshape(m, 1),
+            vals.reshape(m, 1), offsets.astype(np.int32))
+
+
+def _scatter_split(offsets, neighbors, values, width: int):
+    """``csr_to_ell_split`` at any width, by scattering each entry into
+    its slot."""
     offsets = np.asarray(offsets, dtype=np.int64)
     neighbors = np.asarray(neighbors)
     n = len(offsets) - 1
@@ -75,20 +96,29 @@ def csr_to_ell_split(offsets, neighbors, values=None,
 
 
 def _lib():
-    fn = common.library(NAME).spmv_ell
+    lib = common.library(NAME)
+    fn = lib.spmv_ell
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int64, ctypes.c_int32,
-                       ctypes.c_int64, p, p, p]
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        fn.argtypes = [p, p, p, p, i64, i64, i64, p, p, p, p]
         fn.restype = ctypes.c_int
-    return fn
+        lib.spmv_ell_tile_items.argtypes = []
+        lib.spmv_ell_tile_items.restype = i64
+    return lib
+
+
+def tile_items() -> int:
+    """Merge items (row ends and slots) one block of the kernel takes."""
+    return int(_lib().spmv_ell_tile_items())
 
 
 def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, row_ptr: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """``y [n]`` float32 from int32 ``cols [R,K]`` (each in ``[0, |x|)``),
     float32 ``vals [R,K]``, int32 ``row_ptr [n+1]`` (non-decreasing, from
-    0 to R) and float32 ``x``; see the module docstring."""
+    0 to R) and float32 ``x``; see the module docstring.  With no row
+    (``n = 0``) or no slot (``R * K = 0``) it launches nothing and returns
+    zeros."""
     dev = x.device
     common.check_tensor(cols, "cols", torch.int32, dev, ndim=2)
     common.check_tensor(vals, "vals", torch.float32, dev, ndim=2)
@@ -101,12 +131,16 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, row_ptr: torch.Tensor,
         raise ValueError("row_ptr needs at least one entry")
     if not common.kernel_device(x, NAME):
         return spmv_ell_ref(cols, vals, row_ptr, x)
-    rows, width = int(cols.shape[0]), int(cols.shape[1])
-    n = int(row_ptr.shape[0]) - 1
-    partial = torch.empty(rows, dtype=torch.float32, device=dev)
+    n, slots = int(row_ptr.shape[0]) - 1, cols.numel()
+    if n == 0 or slots == 0:
+        return torch.zeros(n, dtype=torch.float32, device=dev)
+    blocks = -(-(n + slots) // tile_items())
+    carry_row = torch.empty(blocks, dtype=torch.int64, device=dev)
+    carry_val = torch.empty(blocks, dtype=torch.float32, device=dev)
     y = torch.empty(n, dtype=torch.float32, device=dev)
-    err = _lib()(cols.data_ptr(), vals.data_ptr(), row_ptr.data_ptr(),
-                 x.data_ptr(), rows, width, n, partial.data_ptr(),
-                 y.data_ptr(), common.stream_ptr(dev))
+    err = _lib().spmv_ell(
+        cols.data_ptr(), vals.data_ptr(), row_ptr.data_ptr(), x.data_ptr(),
+        n, slots, int(cols.shape[1]), carry_row.data_ptr(),
+        carry_val.data_ptr(), y.data_ptr(), common.stream_ptr(dev))
     common.check_launch(err, NAME)
     return y

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each integer kernel bit-equal to
 its plain PyTorch version (``materialize`` up to its total, ``triangle_mm``
-to the plain float64 count) (``spmv_ell`` within float32 rounding of it, and
-bit-equal to itself from launch to launch; ``fm_interaction`` within 1e-5
+to the plain float64 count) (``spmv_ell`` within 1e-5 of each vertex's
+absolute sum of the plain version's sums in float64, and bit-equal to
+itself from launch to launch; ``fm_interaction`` within 1e-5
 of each row's absolute scale), one launch counted per launch,
 no plain fallback for a CUDA tensor, the entry points on the card by
 default, and the device engine and the FM serving path on the card equal
@@ -295,11 +296,60 @@ def test_annotated_fold_on_card_matches_cpu(dev, q):
     np.testing.assert_allclose(g.annotation, c.annotation, rtol=1e-6)
 
 
+ELL_PACKINGS = ["width1", "width4", "width32", "one_row_per_vertex"]
+
+
+def _ell_pack(offsets, neighbors, vals, packing):
+    if packing == "one_row_per_vertex":   # the reference's packing
+        cols, v = ell_ops.csr_to_ell(offsets, neighbors, vals)
+        return cols, v, np.arange(len(offsets), dtype=np.int32)
+    return ell_ops.csr_to_ell_split(offsets, neighbors, vals,
+                                    width=int(packing[len("width"):]))
+
+
+def _spmv_ell_f64(cols, vals, row_ptr, x):
+    """The plain version's sums taken in float64 (the float32 plain version
+    adds a hub's terms one by one with atomics, so its own rounding moves
+    from run to run)."""
+    part = (x.double()[cols.long()] * vals.double()).sum(dim=1)
+    n = int(row_ptr.shape[0]) - 1
+    owner = torch.repeat_interleave(
+        torch.arange(n, device=x.device), (row_ptr[1:] - row_ptr[:-1]).long(),
+        output_size=int(cols.shape[0]))
+    return torch.zeros(n, dtype=torch.float64,
+                       device=x.device).index_add_(0, owner, part)
+
+
+def _check_spmv_ell(dev, packed, x):
+    """Two launches, each counted, give the same bits; each vertex within
+    1e-5 of its absolute sum of the plain version's sums in float64 (an
+    isolated vertex exactly 0).  |kernel - float32 plain| is printed."""
+    cols, vals, row_ptr = (torch.as_tensor(a, device=dev) for a in packed)
+    before = common.LAUNCHES["spmv_ell"]
+    got = ell_ops.spmv_ell(cols, vals, row_ptr, x)
+    again = ell_ops.spmv_ell(cols, vals, row_ptr, x)
+    assert common.LAUNCHES["spmv_ell"] == before + 2
+    assert torch.equal(got, again)
+    want = _spmv_ell_f64(cols, vals, row_ptr, x)
+    abs_sum = _spmv_ell_f64(cols, vals.abs(), row_ptr, x.abs())
+    assert got.shape == want.shape == (int(row_ptr.shape[0]) - 1,)
+    assert bool(((got.double() - want).abs() <= 1e-5 * abs_sum).all())
+    plain = spmv_ell_ref(cols, vals, row_ptr, x)
+    print(f"max |kernel - float32 plain| {float((got - plain).abs().max())}")
+
+
+def _csr(r, deg, nx):
+    deg = np.asarray(deg, dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(deg)])
+    return offsets, r.integers(0, nx, int(offsets[-1])).astype(np.int32)
+
+
+@pytest.mark.parametrize("packing", ELL_PACKINGS)
 @pytest.mark.parametrize("seed", range(4))
-def test_spmv_ell_kernel_matches_plain(dev, seed):
-    """Split rows of hubs up to 3,000 neighbours: within 1e-5 of each
-    vertex's absolute sum of the plain version (float32 sums in another
-    order), and two launches give the same bits."""
+def test_spmv_ell_kernel_matches_plain(dev, seed, packing):
+    """Hubs up to 3,000 neighbours, in each packing the kernel reads: the
+    CSR itself (width 1), split rows of width 4 and 32, and the
+    reference's one row per vertex."""
     from repro_torch.core.trie import CSRGraph
     r = np.random.default_rng(seed)
     n = 5000
@@ -307,17 +357,56 @@ def test_spmv_ell_kernel_matches_plain(dev, seed):
     dst = np.concatenate([r.integers(0, n, 60_000), np.arange(3000)])
     csr = CSRGraph.from_edges(src, dst, n=n)
     vals = r.random(csr.m).astype(np.float32)
-    packed = ell_ops.csr_to_ell_split(csr.offsets, csr.neighbors, vals)
-    cols, vals_t, row_ptr = (torch.as_tensor(a, device=dev) for a in packed)
     x = torch.as_tensor(r.random(n).astype(np.float32), device=dev)
-    before = common.LAUNCHES["spmv_ell"]
-    got = ell_ops.spmv_ell(cols, vals_t, row_ptr, x)
-    again = ell_ops.spmv_ell(cols, vals_t, row_ptr, x)
-    assert common.LAUNCHES["spmv_ell"] == before + 2
-    assert torch.equal(got, again)
-    want = spmv_ell_ref(cols, vals_t, row_ptr, x)
-    abs_sum = spmv_ell_ref(cols, vals_t.abs(), row_ptr, x.abs())
-    assert bool(((got - want).abs() <= 1e-5 * abs_sum).all())
+    _check_spmv_ell(dev, _ell_pack(csr.offsets, csr.neighbors, vals,
+                                   packing), x)
+
+
+@pytest.mark.parametrize("case", ["hub_300k", "tile_boundary",
+                                  "isolated_runs", "single_row"])
+def test_spmv_ell_kernel_edge_cases(dev, case):
+    """A hub spanning many blocks of the merge, rows whose items end just
+    before, at and after a block's boundary, runs of isolated vertices at
+    both ends, and a single row; signed weights; widths 1 and 32."""
+    r = np.random.default_rng(7)
+    tile = ell_ops.tile_items()
+    nx = 400_000
+    if case == "hub_300k":
+        deg = r.integers(0, 30, 1000)
+        deg[17] = 300_000
+    elif case == "tile_boundary":
+        deg = []
+        for d in (-2, -1, 0, 1, 2):
+            deg += [tile + d, 5, 0, 2 * tile + d - 5, 0, 3]
+    elif case == "isolated_runs":
+        deg = np.concatenate([np.zeros(5000, int), r.integers(0, 9, 300),
+                              np.zeros(7000, int)])
+    else:
+        deg = [40]
+    offsets, neighbors = _csr(r, deg, nx)
+    vals = (r.random(len(neighbors)) - 0.5).astype(np.float32)
+    x = torch.as_tensor(r.random(nx).astype(np.float32) - 0.5, device=dev)
+    for width in (1, 32):
+        _check_spmv_ell(dev, ell_ops.csr_to_ell_split(
+            offsets, neighbors, vals, width=width), x)
+
+
+@pytest.mark.parametrize("n", [0, 5])
+def test_spmv_ell_kernel_without_slots(dev, n):
+    """No row (n = 0), or rows but no slot (R = 0): zeros of length n and
+    no launch."""
+    x = torch.ones(4, device=dev)
+    for width in (1, 32):
+        cols, vals, row_ptr = (torch.as_tensor(a, device=dev) for a in
+                               ell_ops.csr_to_ell_split(
+                                   np.zeros(n + 1, np.int64),
+                                   np.zeros(0, np.int32), width=width))
+        assert cols.shape == (0, width)
+        before = common.LAUNCHES["spmv_ell"]
+        got = ell_ops.spmv_ell(cols, vals, row_ptr, x)
+        assert common.LAUNCHES["spmv_ell"] == before
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        assert torch.equal(got, torch.zeros(n, device=dev))
 
 
 def test_entry_points_run_on_the_card(dev):

@@ -6,7 +6,8 @@ mode, as its own tests run it) and ``repro_torch`` on ``device="cpu"``
 
   * the ELL packings and ``spmv_ell``'s plain version against
     ``repro.kernels.spmv_ell``; the port's split-row packing against the
-    reference's one-row-per-vertex packing;
+    reference's one-row-per-vertex packing, and its width-1 packing
+    against the CSR itself;
   * ``recursion.pagerank`` / ``sssp`` / ``fixpoint`` and their numpy
     oracles;
   * ``Engine`` PageRank (``i=8``, ``c=0.0001``) and SSSP: results, the
@@ -95,7 +96,7 @@ def test_csr_to_ell_matches_reference(seed):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("width", [4, 32])
+@pytest.mark.parametrize("width", [1, 4, 32])
 def test_split_packing_equals_unsplit(seed, width):
     """Each vertex's split rows, read in order, hold exactly its unsplit
     row's slots; padding is column 0 / weight 0."""
@@ -115,6 +116,40 @@ def test_split_packing_equals_unsplit(seed, width):
         assert not c[d:].any() and not v[d:].any()
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_width_one_packing_is_the_csr(seed, weighted):
+    """At width 1 the packing is the CSR: one slot per entry, no padding,
+    the neighbours as int32 columns and the offsets as int32 ``row_ptr``;
+    the weights as given, or 1.0."""
+    offsets, neighbors, _ = random_csr(seed, hub=2)
+    vals = np.random.default_rng(seed).random(len(neighbors))
+    cols, got_vals, row_ptr = ell.csr_to_ell_split(
+        offsets, neighbors, vals if weighted else None, width=1)
+    assert cols.dtype == row_ptr.dtype == np.int32
+    assert got_vals.dtype == np.float32
+    assert cols.shape == got_vals.shape == (len(neighbors), 1)
+    np.testing.assert_array_equal(cols.ravel(), neighbors)
+    np.testing.assert_array_equal(row_ptr, offsets)
+    np.testing.assert_array_equal(
+        got_vals.ravel(), vals.astype(np.float32) if weighted else 1.0)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_width_one_shortcut_equals_scatter(seed, weighted):
+    """The width-1 packing, a cast of the CSR, holds the same arrays as the
+    general packing's scatter at width 1, with the same dtypes."""
+    offsets, neighbors, _ = random_csr(seed, hub=2)
+    vals = np.random.default_rng(seed).random(len(neighbors))
+    vals = vals if weighted else None
+    got = ell.csr_to_ell_split(offsets, neighbors, vals, width=1)
+    want = ell._scatter_split(offsets, neighbors, vals, 1)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
 # ------------------------------------------------------------ spmv_ell plain
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
@@ -124,7 +159,8 @@ def _t(a):
 def test_spmv_plain_matches_jax_interpret(seed):
     """The wrapper's CPU path (its plain version) against the JAX
     package's ``spmv_ell`` in interpret mode, on the reference's packing
-    and on the port's split packing of the same rows."""
+    and on the port's split (width 32) and width-1 packings of the same
+    rows."""
     offsets, neighbors, nx = random_csr(seed, hub=2)
     r = np.random.default_rng(seed)
     vals = r.random(len(neighbors)).astype(np.float32)
@@ -135,10 +171,10 @@ def test_spmv_plain_matches_jax_interpret(seed):
     before = common.LAUNCHES[ell.NAME]
     got_u = ell.spmv_ell(_t(cols_u), _t(vals_u),
                          torch.arange(n + 1, dtype=torch.int32), _t(x))
-    got_s = ell.spmv_ell(*map(_t, ell.csr_to_ell_split(offsets, neighbors,
-                                                       vals)), _t(x))
+    got_s, got_1 = (ell.spmv_ell(*map(_t, ell.csr_to_ell_split(
+        offsets, neighbors, vals, width=w)), _t(x)) for w in (32, 1))
     assert common.LAUNCHES[ell.NAME] == before   # the plain version
-    for got in (got_u, got_s):
+    for got in (got_u, got_s, got_1):
         assert got.dtype == torch.float32 and got.shape == (n,)
         np.testing.assert_allclose(got.numpy(), want, **KERNEL_TOL)
 
@@ -178,6 +214,31 @@ def test_pagerank_ell_under_device_backend(graph, iters):
     np.testing.assert_array_equal(trec.pagerank_np(tcsr, iters=iters),
                                   jrec.pagerank_np(jcsr, iters=iters))
     assert tb.stats["spmv.ell_kernel"] == jb.stats["spmv.ell_kernel"] == iters
+
+
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_pagerank_packs_at_width_one(graph, monkeypatch):
+    """Under the device backend ``pagerank`` hands the ELL SpMV the CSR
+    itself (width 1, one slot per edge, ``row_ptr`` = the offsets), once
+    per iteration, and still agrees with the reference."""
+    jcsr, tcsr = both_csr(graph)
+    calls = []
+
+    def spy(cols, vals, row_ptr, x):
+        calls.append((tuple(cols.shape), row_ptr.numpy().copy()))
+        return spmv_ell(cols, vals, row_ptr, x)
+
+    spmv_ell = ell.spmv_ell
+    monkeypatch.setattr(ell, "spmv_ell", spy)
+    tb = DeviceBackend(device="cpu")
+    got = trec.pagerank(tcsr, iters=3, backend=tb)
+    assert [shape for shape, _ in calls] == [(tcsr.m, 1)] * 3
+    for _, row_ptr in calls:
+        np.testing.assert_array_equal(row_ptr, tcsr.offsets)
+    assert tb.stats["spmv.ell_kernel"] == 3
+    np.testing.assert_allclose(
+        got, jrec.pagerank(jcsr, iters=3, backend=JDeviceBackend()),
+        **KERNEL_TOL)
 
 
 @pytest.mark.parametrize("graph", sorted(GRAPHS))

@@ -86,7 +86,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and timed once more on the width-32 split packing of the same graph
    (a printed line, not a table row), and ``triangle_mm`` beside
    ``(torch.matmul(A, A) * A).sum()`` (``library_ms``, used nowhere in
-   the port; no single PyTorch call computes the FM interaction).
+   the port; no single PyTorch call computes the FM interaction), with
+   printed lines for its tile statistics, scratch bytes and two passes
+   timed apart (``torch.profiler``), for the all-zero matrix of the same
+   size (count 0), and for its worst case, a random 0/1 8,192^2 matrix
+   at density 0.5 (exact against the float64 plain version, two launches
+   equal, timed beside ``torch.matmul``).
 
 The last three lines of standard output are the kernel table (JSON), the
 card's ``name, power.limit`` from nvidia-smi, and the result line
@@ -107,6 +112,7 @@ FULL_GRAPH = (200_000, 20, 2.2)
 SMALL_GRAPH = (2000, 12, 2.0)
 LARGE_GRAPH = (2_000_000, 20, 2.2)   # between Patents and LiveJournal
 TRI_GRAPH = (16_384, 20, 2.2)        # its dense adjacency: 16,384^2 float32
+TRI_WORST_N = 8192                   # triangle_mm's dense worst case
 # the materializing path's host oracle runs on a graph of the full-size
 # graph's shape with about a quarter of its edges, which the device engine
 # answers too: at full size the oracle takes 210 s (TY) and 159 s (SUM
@@ -632,6 +638,62 @@ def triangle_path(torch):
     launches = dict(common.LAUNCHES)
     log(f"[triangle] launches {json.dumps(launches)}")
     return launches
+
+
+def triangle_mm_passes(a, tri_ops, torch):
+    """What ``triangle_mm``'s count pass visits on ``a``, its scratch, and
+    its two passes timed apart (``torch.profiler``, mean of 3 calls): a
+    clause of the kernel's printed line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.triangle_mm.ref import tile_stats
+    n = int(a.shape[0])
+    nt = n // 32
+    occupied, triples = tile_stats(a)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            tri_ops.triangle_mm(a)
+        torch.cuda.synchronize()
+    ms = {}
+    for ev in prof.key_averages():
+        for name in ("pack", "count"):
+            if f"triangle_{name}_kernel" in ev.key:
+                ms[name] = ev.self_device_time_total / ev.count / 1e3
+    check(len(ms) == 2, f"triangle_mm's passes not in the trace: {ms}")
+    return (f"{occupied} of {nt * nt} 32x32 tiles occupied, {triples} tile "
+            f"triples visited of nt^3 = {nt ** 3} "
+            f"({100 * triples / nt ** 3:.2f}%); pack pass {ms['pack']:.4f} "
+            f"ms, count pass {ms['count']:.4f} ms (torch.profiler, mean of "
+            f"3 calls); scratch {tri_ops.scratch_bytes(n)} bytes")
+
+
+def triangle_mm_cases(a, tri_ops, plain, time_ms, torch):
+    """``triangle_mm`` on the all-zero matrix of ``a``'s size (count 0)
+    and on its worst case, a dense random 0/1 matrix where every tile
+    triple holds work, exact against the float64 plain version and timed
+    beside ``torch.matmul``: printed lines, not table rows."""
+    zero = torch.zeros_like(a)
+    got = tri_ops.triangle_mm(zero)
+    check(int(got) == 0, f"triangle_mm of the zero matrix gives {int(got)}")
+    log(f"[kernel] triangle_mm on the zero {int(a.shape[0])}^2 matrix: "
+        f"count 0; " + triangle_mm_passes(zero, tri_ops, torch))
+    del zero
+    n = TRI_WORST_N
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = (torch.rand((n, n), generator=gen, device="cuda") < 0.5).float()
+    got = tri_ops.triangle_mm(d)
+    check(torch.equal(got, tri_ops.triangle_mm(d)),
+          "triangle_mm worst case: two launches differ")
+    want = plain(d)
+    check(float(want) == int(got), f"triangle_mm worst case {int(got)} != "
+                                   f"plain {float(want)}")
+    ms = time_ms(lambda: tri_ops.triangle_mm(d), 5)
+    mm_ms = time_ms(lambda: torch.matmul(d, d), 5)
+    log(f"[kernel] triangle_mm worst case, a random 0/1 {n}^2 float32 "
+        f"matrix at density 0.5 (torch.Generator seed 0): raw count "
+        f"{int(got)}, equal to the float64 plain version, two launches "
+        f"equal; kernel {ms:.4f} ms, torch.matmul {mm_ms:.4f} ms; "
+        + triangle_mm_passes(d, tri_ops, torch))
 
 
 def warm_wall(fn, torch, reps=FM_REPS):
@@ -1171,7 +1233,10 @@ def main():
             library_ms = time_ms(lib_fn, reps)
             shape += (f"; raw count {int(got)}, equal to the float64 plain "
                       f"version, two launches equal; torch.matmul "
-                      f"{library_ms:.4f} ms (gives {lib})")
+                      f"{library_ms:.4f} ms (gives {lib}); "
+                      + triangle_mm_passes(a, tri_ops, torch))
+            triangle_mm_cases(a, tri_ops, triangle_count_dense_ref, time_ms,
+                              torch)
         elif name == "fm_interaction":
             got, want = kern(), plain()
             check(torch.equal(got, kern()), "fm_interaction: two launches "

@@ -215,8 +215,10 @@ class HybridSetStore:
                 self.bitset, slot[u[idx]], slot[v[idx]],
                 self.word_kernel or bitset_and_popcount_ref,
                 self.dev("block_ids"), self.dev("words"))
+            # the reference's key for the plain count, kept so that
+            # dispatch summaries compare
             self._bump("intersect.bitset_kernel" if self.word_kernel
-                       else "intersect.bitset_plain", len(idx))
+                       else "intersect.bitset_jnp", len(idx))
 
         mixed = ud ^ vd
         if mixed.any():

@@ -20,7 +20,7 @@ from repro_torch.kernels.triangle_mm.ref import triangle_count_dense_ref
 
 NAME = "triangle_mm"
 _BLOCK = 256
-# the kernel's tile: the padded size must be a multiple of it
+# n must be a multiple of it on the card (half the pack pass's patch)
 _TILE = 128
 
 
@@ -29,15 +29,27 @@ def _lib():
     fn = lib.triangle_mm
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_void_p]
+                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def scratch_bytes(n: int) -> int:
+    """Bytes of scratch the kernel takes for an ``[n, n]`` input: the bit
+    planes of the rows and the columns of A (n^2 / 8 bytes each) and the
+    two bitmaps of occupied 32 x 32 tiles (nt rows of ceil(nt / 32)
+    words, nt = n / 32).  From n alone: nothing is read from the card."""
+    nt = n // 32
+    return n * n // 4 + 2 * nt * (-(-nt // 32)) * 4
 
 
 def triangle_mm(a: torch.Tensor) -> torch.Tensor:
     """Exact ``sum((A @ A) * A)`` of a contiguous 0/1 float32 ``[n, n]``
     (n a multiple of 128 on the card) as a 0-d int64 tensor on ``a``'s
-    device."""
+    device.  On the card: a pack pass to bit planes and tile bitmaps,
+    then a count pass over the tile triples that hold work
+    (``csrc/triangle_mm.cu``), with ``scratch_bytes(n)`` of scratch from
+    the caching allocator and no host sync."""
     dev = a.device
     common.check_tensor(a, "a", torch.float32, dev, ndim=2)
     n = int(a.shape[0])
@@ -49,8 +61,13 @@ def triangle_mm(a: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"n={n} is not a multiple of {_TILE}")
     if a.data_ptr() % 16:
         raise ValueError("a must be 16-byte aligned")
+    nbytes = scratch_bytes(n)
+    # freed on return: the caching allocator hands it out again only to
+    # work queued after this call on the same stream
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     out = torch.empty((), dtype=torch.int64, device=dev)
-    err = _lib()(a.data_ptr(), n, out.data_ptr(), common.stream_ptr(dev))
+    err = _lib()(a.data_ptr(), n, scratch.data_ptr(), nbytes, out.data_ptr(),
+                 common.stream_ptr(dev))
     common.check_launch(err, NAME)
     return out
 

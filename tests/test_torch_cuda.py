@@ -215,6 +215,86 @@ def test_triangle_mm_kernel_matches_plain(dev, n, pruned):
     assert float(ent) == np.float32(raw / 6.0 if not pruned else raw)
 
 
+def _block_diagonal(n, sizes):
+    """Cliques (no self-loops) on consecutive vertex runs of ``sizes``:
+    blocks 32, 64 and 96 wide from a tile edge, then blocks that begin and
+    end inside tiles."""
+    a = np.zeros((n, n), dtype=bool)
+    start = 0
+    for s in sizes:
+        a[start:start + s, start:start + s] = True
+        start += s
+    np.fill_diagonal(a, False)
+    return a
+
+
+def _pruned_powerlaw(symmetric):
+    from repro_torch.graph.prune import prune_symmetric, symmetrize
+    g = powerlaw_graph(2048, 20, 2.2, seed=0)
+    sym = symmetrize(*edge_list(g), n=g.n)
+    csr = sym if symmetric else prune_symmetric(sym)
+    return tri_ops.densify_csr(csr.offsets, csr.neighbors, g.n) != 0
+
+
+def _corners(n):
+    """A nonzero at each corner of A (bit 0 and bit 31 of the first and
+    last words), and three on the inner edges of corner tiles."""
+    a = np.zeros((n, n), dtype=bool)
+    for i, j in [(0, 0), (0, n - 1), (n - 1, 0), (n - 1, n - 1),
+                 (31, 31), (31, n - 32), (n - 32, 31)]:
+        a[i, j] = True
+    return a
+
+
+TILE_CASES = {
+    "n128": lambda: np.random.default_rng(0).random((128, 128)) < 0.3,
+    "zeros_1024": lambda: np.zeros((1024, 1024), dtype=bool),
+    "corners_1024": lambda: _corners(1024),
+    "corners_1152": lambda: _corners(1152),
+    # 1152 = 36 tiles: two words a bitmap row, the last one partial
+    "block_diagonal_1152": lambda: _block_diagonal(
+        1152, [32, 64, 96, 40, 70, 25, 100, 33, 31, 200, 1, 3, 457]),
+    "block_diagonal_384": lambda: _block_diagonal(384, [96, 64, 32, 45, 147]),
+    "powerlaw_2048_pruned": lambda: _pruned_powerlaw(False),
+    "powerlaw_2048_symmetric": lambda: _pruned_powerlaw(True),
+    # every tile occupied, every tile triple visited
+    "dense_half_1024": lambda: np.random.default_rng(1).random((1024, 1024))
+    < 0.5,
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_triangle_mm_skips_only_empty_tiles(dev, case):
+    """Matrices whose empty 32 x 32 tiles the count pass skips (and one
+    with none): the exact raw count of the plain float64 version, twice
+    the same, one launch counted per call."""
+    a = TILE_CASES[case]()
+    t = torch.as_tensor(a.astype(np.float32), device=dev)
+    before = common.LAUNCHES["triangle_mm"]
+    got = tri_ops.triangle_mm(t)
+    assert common.LAUNCHES["triangle_mm"] == before + 1
+    assert torch.equal(got, tri_ops.triangle_mm(t))
+    assert common.LAUNCHES["triangle_mm"] == before + 2
+    assert got.dtype == torch.int64 and got.device == t.device
+    want = float(triangle_count_dense_ref(t))
+    assert int(got) == want
+    assert (want == 0) == (case == "zeros_1024")
+
+
+def test_triangle_mm_makes_no_host_sync(dev):
+    """The call sizes its scratch from n alone: no read of the card."""
+    a = torch.as_tensor(_pruned_powerlaw(False).astype(np.float32),
+                        device=dev)
+    tri_ops.triangle_mm(a)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tri_ops.triangle_mm(a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(got) == float(triangle_count_dense_ref(a))
+
+
 @pytest.mark.parametrize("q", [
     "TY(x,y) :- R(x,y),S(y,z),T(x,z).",
     "SM(x;w:long) :- R(x,y),S(y,z),T(x,z); w=<<SUM(z)>>.",

@@ -96,3 +96,23 @@ def test_wrapper_checks_its_arguments():
         tri_ops.triangle_mm(torch.zeros((128, 256), dtype=torch.float32))
     with pytest.raises(ValueError, match="block"):
         triangle_count_dense(torch.zeros((10, 10)), symmetric=True, block=100)
+
+
+@pytest.mark.parametrize("n,want", [(128, 4128), (1152, 332_352),
+                                    (16_384, 67_174_400)])
+def test_kernel_scratch_is_sized_from_n(n, want):
+    """Two bit planes of n^2 / 8 bytes and two bitmaps of occupied 32 x 32
+    tiles, nt rows of ceil(nt / 32) words: from n alone."""
+    assert tri_ops.scratch_bytes(n) == want
+
+
+def test_tile_stats_count_what_the_count_pass_visits():
+    from repro_torch.kernels.triangle_mm.ref import tile_stats
+    r = np.random.default_rng(4)
+    a = torch.from_numpy((r.random((256, 256)) < 0.002).astype(np.float32))
+    occ = [[bool(a[32 * i:32 * i + 32, 32 * j:32 * j + 32].any())
+            for j in range(8)] for i in range(8)]
+    triples = sum(occ[i][j] and occ[i][k] and occ[k][j]
+                  for i in range(8) for j in range(8) for k in range(8))
+    assert tile_stats(a) == (sum(map(sum, occ)), triples)
+    assert 0 < triples < 8 ** 3

@@ -88,7 +88,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``(torch.matmul(A, A) * A).sum()`` (``library_ms``, used nowhere in
    the port; no single PyTorch call computes the FM interaction), with
    printed lines for its tile statistics, scratch bytes and two passes
-   timed apart (``torch.profiler``), for the all-zero matrix of the same
+   timed apart (CUDA events), for the all-zero matrix of the same
    size (count 0), and for its worst case, a random 0/1 8,192^2 matrix
    at density 0.5 (exact against the float64 plain version, two launches
    equal, timed beside ``torch.matmul``).
@@ -640,31 +640,29 @@ def triangle_path(torch):
     return launches
 
 
-def triangle_mm_passes(a, tri_ops, torch):
+def triangle_mm_passes(a, tri_ops, time_ms, torch):
     """What ``triangle_mm``'s count pass visits on ``a``, its scratch, and
-    its two passes timed apart (``torch.profiler``, mean of 3 calls): a
-    clause of the kernel's printed line."""
-    from torch.profiler import ProfilerActivity, profile
-
+    its two passes timed apart (CUDA events, L2 flushed, median of 5
+    launches of each): a clause of the kernel's printed line."""
     from repro_torch.kernels.triangle_mm.ref import tile_stats
     n = int(a.shape[0])
     nt = n // 32
     occupied, triples = tile_stats(a)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            tri_ops.triangle_mm(a)
-        torch.cuda.synchronize()
-    ms = {}
-    for ev in prof.key_averages():
-        for name in ("pack", "count"):
-            if f"triangle_{name}_kernel" in ev.key:
-                ms[name] = ev.self_device_time_total / ev.count / 1e3
-    check(len(ms) == 2, f"triangle_mm's passes not in the trace: {ms}")
+    scratch = torch.empty(tri_ops.scratch_bytes(n), dtype=torch.uint8,
+                          device="cuda")
+    out = torch.empty((), dtype=torch.int64, device="cuda")
+    pack_ms = time_ms(
+        lambda: tri_ops.run_passes(a, scratch, out, tri_ops.PACK), 5)
+    count_ms = time_ms(
+        lambda: tri_ops.run_passes(a, scratch, out, tri_ops.COUNT), 5)
+    check(torch.equal(out, tri_ops.triangle_mm(a)),
+          "triangle_mm's count pass alone differs from the whole call")
+    del scratch
     return (f"{occupied} of {nt * nt} 32x32 tiles occupied, {triples} tile "
             f"triples visited of nt^3 = {nt ** 3} "
-            f"({100 * triples / nt ** 3:.2f}%); pack pass {ms['pack']:.4f} "
-            f"ms, count pass {ms['count']:.4f} ms (torch.profiler, mean of "
-            f"3 calls); scratch {tri_ops.scratch_bytes(n)} bytes")
+            f"({100 * triples / nt ** 3:.2f}%); pack pass {pack_ms:.4f} ms, "
+            f"count pass {count_ms:.4f} ms (CUDA events, L2 flushed, median "
+            f"of 5); scratch {tri_ops.scratch_bytes(n)} bytes")
 
 
 def triangle_mm_cases(a, tri_ops, plain, time_ms, torch):
@@ -676,7 +674,7 @@ def triangle_mm_cases(a, tri_ops, plain, time_ms, torch):
     got = tri_ops.triangle_mm(zero)
     check(int(got) == 0, f"triangle_mm of the zero matrix gives {int(got)}")
     log(f"[kernel] triangle_mm on the zero {int(a.shape[0])}^2 matrix: "
-        f"count 0; " + triangle_mm_passes(zero, tri_ops, torch))
+        f"count 0; " + triangle_mm_passes(zero, tri_ops, time_ms, torch))
     del zero
     n = TRI_WORST_N
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -693,7 +691,7 @@ def triangle_mm_cases(a, tri_ops, plain, time_ms, torch):
         f"matrix at density 0.5 (torch.Generator seed 0): raw count "
         f"{int(got)}, equal to the float64 plain version, two launches "
         f"equal; kernel {ms:.4f} ms, torch.matmul {mm_ms:.4f} ms; "
-        + triangle_mm_passes(d, tri_ops, torch))
+        + triangle_mm_passes(d, tri_ops, time_ms, torch))
 
 
 def warm_wall(fn, torch, reps=FM_REPS):
@@ -1234,7 +1232,7 @@ def main():
             shape += (f"; raw count {int(got)}, equal to the float64 plain "
                       f"version, two launches equal; torch.matmul "
                       f"{library_ms:.4f} ms (gives {lib}); "
-                      + triangle_mm_passes(a, tri_ops, torch))
+                      + triangle_mm_passes(a, tri_ops, time_ms, torch))
             triangle_mm_cases(a, tri_ops, triangle_count_dense_ref, time_ms,
                               torch)
         elif name == "fm_interaction":

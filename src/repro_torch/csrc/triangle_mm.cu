@@ -255,24 +255,32 @@ int64_t scratch_needed(int64_t n) {
 
 }  // namespace
 
+// passes: 1 the pack pass, 2 the count pass (over the bit planes a pack
+// pass left in scratch), 3 both, as a count takes them; 1 and 2 alone let
+// a caller time the passes apart.
 extern "C" int triangle_mm(const float* a, int64_t n, void* scratch,
                            int64_t scratch_bytes, unsigned long long* out,
-                           cudaStream_t stream) {
+                           int passes, cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (n % 128 != 0 || scratch_bytes < scratch_needed(n))
+  if (n % 128 != 0 || scratch_bytes < scratch_needed(n) || passes < 1 ||
+      passes > 3)
     return (int)cudaErrorInvalidValue;
   const int64_t nt = n / 32, ow = words_a_bitmap_row(n);
   uint32_t* rt = static_cast<uint32_t*>(scratch);
   uint32_t* ct = rt + n * n / 32;
   uint32_t* occ_r = ct + n * n / 32;
   uint32_t* occ_c = occ_r + nt * ow;
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(unsigned long long), stream);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned patches = (unsigned)((n + kPatch - 1) / kPatch);
-  triangle_pack_kernel<<<dim3(patches, patches), kWarps * 32, 0, stream>>>(
-      a, n, rt, ct, reinterpret_cast<uint8_t*>(occ_r),
-      reinterpret_cast<uint8_t*>(occ_c), ow);
-  err = cudaGetLastError();
+  if (passes & 1) {
+    const unsigned patches = (unsigned)((n + kPatch - 1) / kPatch);
+    triangle_pack_kernel<<<dim3(patches, patches), kWarps * 32, 0, stream>>>(
+        a, n, rt, ct, reinterpret_cast<uint8_t*>(occ_r),
+        reinterpret_cast<uint8_t*>(occ_c), ow);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!(passes & 2)) return 0;
+  const cudaError_t err =
+      cudaMemsetAsync(out, 0, sizeof(unsigned long long), stream);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((nt + kWarps - 1) / kWarps), (unsigned)nt);
   triangle_count_kernel<<<grid, kWarps * 32, 0, stream>>>(

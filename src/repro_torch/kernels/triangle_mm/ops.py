@@ -29,7 +29,8 @@ def _lib():
     fn = lib.triangle_mm
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -61,15 +62,42 @@ def triangle_mm(a: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"n={n} is not a multiple of {_TILE}")
     if a.data_ptr() % 16:
         raise ValueError("a must be 16-byte aligned")
-    nbytes = scratch_bytes(n)
     # freed on return: the caching allocator hands it out again only to
     # work queued after this call on the same stream
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    scratch = torch.empty(scratch_bytes(n), dtype=torch.uint8, device=dev)
     out = torch.empty((), dtype=torch.int64, device=dev)
-    err = _lib()(a.data_ptr(), n, scratch.data_ptr(), nbytes, out.data_ptr(),
-                 common.stream_ptr(dev))
-    common.check_launch(err, NAME)
+    common.check_launch(_launch(a, scratch, out, PACK | COUNT), NAME)
     return out
+
+
+PACK, COUNT = 1, 2
+
+
+def run_passes(a: torch.Tensor, scratch: torch.Tensor, out: torch.Tensor,
+               passes: int) -> None:
+    """Launch ``triangle_mm``'s pack pass (``PACK``), its count pass over
+    the bit planes a pack pass left in ``scratch`` (``COUNT``), or both,
+    on the card, with ``a`` checked as ``triangle_mm`` checks it and no
+    bump of ``LAUNCHES``: the passes timed apart.  ``scratch`` is a uint8
+    tensor of at least ``scratch_bytes(n)``; ``out`` a 0-d int64 tensor
+    that the count pass sets."""
+    common.check_tensor(a, "a", torch.float32, a.device, ndim=2)
+    n = int(a.shape[0])
+    if (a.device.type != "cuda" or a.shape[1] != n or n % _TILE
+            or a.data_ptr() % 16):
+        raise ValueError("run_passes takes a square card tensor, n a "
+                         f"multiple of {_TILE}, 16-byte aligned")
+    common.check_tensor(scratch, "scratch", torch.uint8, a.device, ndim=1)
+    common.check_tensor(out, "out", torch.int64, a.device, ndim=0)
+    err = _launch(a, scratch, out, passes)
+    if err:
+        raise RuntimeError(f"{NAME}: CUDA launch failed with error {err}")
+
+
+def _launch(a, scratch, out, passes: int) -> int:
+    return _lib()(a.data_ptr(), int(a.shape[0]), scratch.data_ptr(),
+                  scratch.numel(), out.data_ptr(), passes,
+                  common.stream_ptr(a.device))
 
 
 def triangle_count_dense(a, *, symmetric: bool, block: int = _BLOCK,

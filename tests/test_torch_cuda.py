@@ -295,6 +295,27 @@ def test_triangle_mm_makes_no_host_sync(dev):
     assert int(got) == float(triangle_count_dense_ref(a))
 
 
+def test_triangle_mm_passes_run_apart_give_the_count(dev):
+    """The pack pass, then the count pass alone over the planes it left,
+    give the whole call's count, and neither bumps ``LAUNCHES``."""
+    a = torch.as_tensor(_pruned_powerlaw(False).astype(np.float32),
+                        device=dev)
+    n = int(a.shape[0])
+    scratch = torch.empty(tri_ops.scratch_bytes(n), dtype=torch.uint8,
+                          device=dev)
+    out = torch.empty((), dtype=torch.int64, device=dev)
+    before = common.LAUNCHES["triangle_mm"]
+    tri_ops.run_passes(a, scratch, out, tri_ops.PACK)
+    tri_ops.run_passes(a, scratch, out, tri_ops.COUNT)
+    first = out.clone()
+    tri_ops.run_passes(a, scratch, out, tri_ops.COUNT)
+    assert common.LAUNCHES["triangle_mm"] == before
+    assert torch.equal(first, out)
+    assert torch.equal(out, tri_ops.triangle_mm(a))
+    with pytest.raises(RuntimeError):
+        tri_ops.run_passes(a, scratch[:-1], out, tri_ops.COUNT)
+
+
 @pytest.mark.parametrize("q", [
     "TY(x,y) :- R(x,y),S(y,z),T(x,z).",
     "SM(x;w:long) :- R(x,y),S(y,z),T(x,z); w=<<SUM(z)>>.",

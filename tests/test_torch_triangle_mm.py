@@ -97,6 +97,12 @@ def test_wrapper_checks_its_arguments():
     with pytest.raises(ValueError, match="block"):
         triangle_count_dense(torch.zeros((10, 10)), symmetric=True, block=100)
 
+    with pytest.raises(ValueError, match="card"):
+        tri_ops.run_passes(torch.zeros((128, 128)),
+                           torch.empty(tri_ops.scratch_bytes(128),
+                                       dtype=torch.uint8),
+                           torch.empty((), dtype=torch.int64), tri_ops.PACK)
+
 
 @pytest.mark.parametrize("n,want", [(128, 4128), (1152, 332_352),
                                     (16_384, 67_174_400)])

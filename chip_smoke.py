@@ -53,7 +53,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``MN(x; MIN(z))`` run on ``powerlaw_graph(2000, 12, 2.0)``, each equal
    to the host oracle; ``extend.pair_materialize_calls``,
    ``intersect.materialize_kernel`` and the kernel's launches must be
-   non-zero;
+   non-zero, and ``materialize`` must launch once a call;
 6. dense triangle path, with every launch counter set to 0 just before
    and read just after: ``triangle_count_dense`` of the dense 0/1
    adjacency of ``prune_symmetric(symmetrize(powerlaw_graph(16_384, 20,
@@ -74,7 +74,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    interaction) within ``rtol=1e-5, atol=1e-6``, every logit finite;
 8. every kernel is run again on the largest inputs its path gave it and
    held against its plain PyTorch version — bit for bit (``materialize``
-   up to its total, ``triangle_mm`` against the float64 count), or for
+   up to its total, two launches equal, with the closing fetch of the
+   whole buffer and of the total's records timed, and three more cases:
+   every AND full, no match, and no match with every row from L1;
+   ``triangle_mm`` against the float64 count), or for
    ``spmv_ell`` within 1e-5 of each vertex's absolute sum of the plain
    version's sums taken in float64 (the float32 plain version's own
    distance from them is printed: on the width-1 packing it adds a hub's
@@ -113,6 +116,9 @@ SMALL_GRAPH = (2000, 12, 2.0)
 LARGE_GRAPH = (2_000_000, 20, 2.2)   # between Patents and LiveJournal
 TRI_GRAPH = (16_384, 20, 2.2)        # its dense adjacency: 16,384^2 float32
 TRI_WORST_N = 8192                   # triangle_mm's dense worst case
+# materialize's write-bound case: this many of the captured call's pairs
+# over all-ones blocks, 256 matches a pair (268M records, 4.3 GB)
+MAT_FULL_PAIRS = 1 << 20
 # the materializing path's host oracle runs on a graph of the full-size
 # graph's shape with about a quarter of its edges, which the device engine
 # answers too: at full size the oracle takes 210 s (TY) and 159 s (SUM
@@ -212,15 +218,17 @@ def check(cond, msg):
 
 
 class Capture:
-    """Wrap a kernel wrapper to keep the arguments of its largest call."""
+    """Wrap a kernel wrapper to keep the arguments of its largest call and
+    count its calls with work (size above 0)."""
 
     def __init__(self, module, attr, size_of):
         self.module, self.attr = module, attr
         self.orig = getattr(module, attr)
-        self.size, self.args = -1, None
+        self.size, self.args, self.calls = -1, None, 0
 
         def wrapped(*args):
             n = size_of(*args)
+            self.calls += n > 0
             if n > self.size:
                 self.size, self.args = n, args
             return self.orig(*args)
@@ -694,6 +702,83 @@ def triangle_mm_cases(a, tri_ops, plain, time_ms, torch):
         + triangle_mm_passes(d, tri_ops, time_ms, torch))
 
 
+def materialize_bytes(words, pa, pb, total, torch):
+    """The bytes ``materialize`` must move, and the blocks it reads: each
+    matched block read once (its words, block id and index), the three
+    per-pair inputs, 16 bytes per match written and the total."""
+    rows_read = int(torch.unique(torch.cat([pa, pb])).numel())
+    moved = (rows_read * (int(words.shape[1]) * 4 + 8)
+             + 12 * int(pa.shape[0]) + total * 16 + 4)
+    return moved, rows_read
+
+
+def materialize_fetch(buf, total, mat_ops, common, torch):
+    """The closing fetch of ``bitset_pair_materialize`` on ``buf``: the
+    whole buffer, as it was fetched before the cut at the total, against
+    ``fetch`` (the total, then its records); bytes and host wall (median
+    of 3) of each: a clause of the kernel's printed line."""
+    import numpy as np
+
+    def wall(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3, out
+
+    whole_ms, _ = wall(lambda: common.host_get(buf))
+    cut_ms, cols = wall(lambda: mat_ops.fetch(buf))
+    check(all(len(c) == total for c in cols),
+          "materialize: fetch did not bring back the total's records")
+    return (f"closing fetch of the whole buffer {buf.numel() * 4} bytes in "
+            f"{whole_ms:.3f} ms, of the total and its records "
+            f"{8 + 16 * total} bytes in {cut_ms:.3f} ms")
+
+
+def materialize_cases(args, mat_ops, plain, time_ms, torch):
+    """``materialize`` on the captured call's pairs over a zero words
+    table (no match: the read-only floor), on as many pairs all on one
+    zero block (no match, every row from L1: the floor without the rows'
+    L2 traffic), and on its first ``MAT_FULL_PAIRS`` pairs over all-ones
+    blocks (every AND full, 256 matches a pair: the write-bound worst
+    case), each bit-equal to the plain version up to the total, two
+    launches equal, timed: printed lines, not table rows."""
+    from repro_torch.kernels.materialize.ref import HEADER, buffer_total
+    words, block_ids, index, pa, pb, pid, _cap = args
+    bits = int(words.shape[1]) * 32
+    zero, one_block = torch.zeros_like(words), torch.zeros_like(pa)
+    for label, table, ca, cb, per_pair in (
+            ("no match (zero words table)", zero, pa, pb, 0),
+            ("no match, every pair on one zero block", zero, one_block,
+             one_block, 0),
+            ("every AND full (all-ones words table)",
+             torch.full_like(words, -1), pa[:MAT_FULL_PAIRS],
+             pb[:MAT_FULL_PAIRS], bits)):
+        n = int(ca.shape[0])
+        case = (table, block_ids, index, ca, cb, pid[:n])
+        cap = n * per_pair
+        got = mat_ops.materialize(*case, cap)
+        want = plain(*case, cap)
+        total = int(buffer_total(want)[0])
+        used = HEADER + 4 * total
+        check(int(buffer_total(got)[0]) == total == cap,
+              f"materialize, {label}: totals {int(buffer_total(got)[0])} / "
+              f"{total} / {cap}")
+        check(torch.equal(got[:used], want[:used]),
+              f"materialize, {label}: differs from its plain version")
+        check(torch.equal(got[:used], mat_ops.materialize(*case, cap)[:used]),
+              f"materialize, {label}: two launches differ")
+        del got, want
+        ms = time_ms(lambda: mat_ops.materialize(*case, cap), 5)
+        moved, _ = materialize_bytes(table, ca, cb, total, torch)
+        log(f"[kernel] materialize, {label}: pairs={n} matches={total}, "
+            f"bit-equal to the plain version, two launches equal; kernel "
+            f"{ms:.4f} ms (CUDA events, L2 flushed, median of 5), bound "
+            f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
+
+
 def warm_wall(fn, torch, reps=FM_REPS):
     """Median host wall of ``reps`` calls of ``fn``, each ending in
     ``torch.cuda.synchronize()``, after one untimed call."""
@@ -857,7 +942,8 @@ def main():
     from repro_torch.kernels.frontier_fill import ops as fill_ops
     from repro_torch.kernels.frontier_fill.ref import fill_ref, fold_ref
     from repro_torch.kernels.materialize import ops as mat_ops
-    from repro_torch.kernels.materialize.ref import materialize_ref
+    from repro_torch.kernels.materialize.ref import (HEADER, buffer_total,
+                                                     materialize_ref)
     from repro_torch.kernels.spmv_ell import ops as ell_ops
     from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
     from repro_torch.kernels.triangle_mm import ops as tri_ops
@@ -977,6 +1063,9 @@ def main():
     captures["materialize"].restore()
     for name in MAT_KERNELS:
         check(mat_launches.get(name, 0) > 0, f"kernel {name} never launched")
+    check(mat_launches["materialize"] == captures["materialize"].calls,
+          f"materialize: {mat_launches['materialize']} launches for "
+          f"{captures['materialize'].calls} calls with pairs, not one a call")
 
     # ----------------------------------------- 6. dense triangle path
     captures["triangle_mm"] = Capture(tri_ops, "triangle_mm",
@@ -1113,17 +1202,13 @@ def main():
             plain = lambda: materialize_ref(*args)                # noqa: E731
             p = int(pa.shape[0])
             w = int(words.shape[1])
-            total = int(kern()[0])
-            rows_read = int(torch.unique(torch.cat([pa, pb])).numel())
-            # each matched block read once (its words, block id and
-            # index), the three per-pair inputs, 16 bytes per match
-            # written and the total
-            moved = rows_read * (w * 4 + 8) + nbytes(pa, pb, pid) \
-                + total * 16 + 4
+            total = int(buffer_total(kern())[0])
+            moved, rows_read = materialize_bytes(words, pa, pb, total, torch)
             ops = p * w * 8 + total * 12
             plain_reps = 3
             shape = (f"pairs={p} words={w} blocks={int(words.shape[0])} "
-                     f"rows_read={rows_read} matches={total} cap={cap}")
+                     f"rows_read={rows_read} matches={total} cap={cap}; "
+                     f"block rows read from L2 {p * 2 * w * 4} bytes")
         elif name == "triangle_mm":
             (a,) = args
             n = int(a.shape[0])
@@ -1212,13 +1297,19 @@ def main():
             del split
         elif name == "materialize":
             got, want = kern(), plain()
-            check(int(got[0]) == int(want[0]) == total,
-                  f"materialize: totals {int(got[0])} / {int(want[0])}")
-            err = max_err(tuple(got[1:].view(4, cap)[:, :total]),
-                          tuple(want[1:].view(4, cap)[:, :total]))
+            got_n, want_n = (int(buffer_total(x)[0]) for x in (got, want))
+            check(got_n == want_n == total,
+                  f"materialize: totals {got_n} / {want_n}")
+            used = HEADER + 4 * total
+            err = max_err((got[:used],), (want[:used],))
             check(err == 0, f"materialize differs from its plain version "
                             f"(max |err| {err})")
-            shape += "; bit-equal up to the total"
+            check(torch.equal(got[:used], kern()[:used]),
+                  "materialize: two launches differ")
+            shape += ("; bit-equal up to the total, two launches equal; "
+                      + materialize_fetch(got, total, mat_ops, common, torch))
+            del got, want
+            materialize_cases(args, mat_ops, materialize_ref, time_ms, torch)
         elif name == "triangle_mm":
             got, want = kern(), plain()
             check(torch.equal(got, kern()), "triangle_mm: two launches "

@@ -9,9 +9,10 @@ contract: ``(pair_id, values, rank_a, rank_b)``, pair-major with values
 ascending, bit for bit equal to
 :func:`repro_torch.core.intersect.bitset_intersect_materialize`.  Block
 matching stays on the host, as in the reference (``intersect_pairs_uint``
-over block ids); the kernel (:func:`materialize`) ANDs the matched blocks,
-ranks and compacts the surviving bits on the device, into a buffer sized
-by a host bound, and one closing ``host_get`` brings the matches back.
+over block ids); the kernel (:func:`materialize`, one launch) ANDs the
+matched blocks, ranks and compacts the surviving bits on the device, into
+a buffer sized by a host bound, and :func:`fetch` brings back its total
+and then only the total's records.
 """
 from __future__ import annotations
 
@@ -21,25 +22,29 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.materialize.ref import materialize_ref
+from repro_torch.kernels.materialize.ref import (HEADER, buffer_records,
+                                                 buffer_total,
+                                                 materialize_ref)
 
 NAME = "materialize"
+# the kernel holds a pair's block rows in a warp's registers, 8 words a
+# lane: blocks of up to 8192 bits
+MAX_WORDS = 256
 
 
 def _lib():
     lib = common.library(NAME)
-    count, fill = lib.materialize_count, lib.materialize_fill
-    if count.argtypes is None:
-        count.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
-                          ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                          ctypes.c_void_p]
-        count.restype = ctypes.c_int
-        fill.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
-        fill.restype = ctypes.c_int
-    return count, fill
+    fn, tiles = lib.materialize, lib.materialize_tiles
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        tiles.argtypes = [ctypes.c_int32, ctypes.c_int64]
+        tiles.restype = ctypes.c_int64
+    return fn, tiles
 
 
 def materialize(words: torch.Tensor, block_ids: torch.Tensor,
@@ -49,14 +54,18 @@ def materialize(words: torch.Tensor, block_ids: torch.Tensor,
     """Every set bit of ``words[pos_a[p]] & words[pos_b[p]]`` with its
     pair id, value and rank in both sets.
 
-    words : [B, W] int32 view of the uint32 bitvector blocks
+    words : [B, W] int32 view of the uint32 bitvector blocks (W <= 256
+        and 16-byte aligned on the card)
     block_ids, index : [B] int32 block number and cumulative cardinality
         of the set before the block (``BlockedBitset.block_ids/index``)
     pos_a, pos_b, pair_id : [P] int32 matched block rows and their pair
     cap : host upper bound on the number of matches
-    Returns int32 ``[1 + 4 * cap]``: the total, then ``cap`` slots each of
-    pair id, value, rank a, rank b (pair-major, values ascending; slots
-    past the total are not written by the kernel).
+    Returns int32 ``[HEADER + 4 * cap]`` (``ref.buffer_total`` and
+    ``ref.buffer_records`` read it): the int64 total, then ``cap``
+    records (pair id, value, rank a, rank b), pair-major, values
+    ascending.  On the card, records past the total are not written and
+    a total past ``cap`` keeps only the first ``cap`` records (``fetch``
+    raises); the call reads nothing back and sizes its scratch from P.
     """
     dev = words.device
     common.check_tensor(words, "words", torch.int32, dev, ndim=2)
@@ -71,34 +80,38 @@ def materialize(words: torch.Tensor, block_ids: torch.Tensor,
     if not common.kernel_device(words, NAME):
         return materialize_ref(words, block_ids, index, pos_a, pos_b,
                                pair_id, cap)
-    p = int(pos_a.shape[0])
-    out = torch.empty(1 + 4 * cap, dtype=torch.int32, device=dev)
-    if p == 0:
-        out[0] = 0
-        return out
-    count, fill = _lib()
-    stream = common.stream_ptr(dev)
     w = int(words.shape[1])
-    counts = torch.empty(p, dtype=torch.int32, device=dev)
-    common.check_launch(count(words.data_ptr(), w, pos_a.data_ptr(),
-                              pos_b.data_ptr(), p, counts.data_ptr(), stream),
-                        NAME)
-    incl = torch.cumsum(counts, 0, dtype=torch.int32)
-    common.check_launch(fill(words.data_ptr(), w, block_ids.data_ptr(),
-                             index.data_ptr(), pos_a.data_ptr(),
-                             pos_b.data_ptr(), pair_id.data_ptr(), p,
-                             incl.data_ptr(), cap, out.data_ptr(), stream),
-                        NAME)
+    if not 1 <= w <= MAX_WORDS or words.data_ptr() % 16:
+        raise ValueError(f"words: the kernel takes 16-byte aligned rows of "
+                         f"1 to {MAX_WORDS} words, got {w}")
+    p = int(pos_a.shape[0])
+    out = torch.empty(HEADER + 4 * cap, dtype=torch.int32, device=dev)
+    if p == 0:
+        out[:HEADER] = 0
+        return out
+    fn, tiles = _lib()
+    # the ticket and one status word a tile; freed on return, reused only
+    # by work queued after this call on the same stream
+    scratch = torch.empty(1 + tiles(w, p), dtype=torch.int64, device=dev)
+    common.check_launch(fn(words.data_ptr(), w, block_ids.data_ptr(),
+                           index.data_ptr(), pos_a.data_ptr(),
+                           pos_b.data_ptr(), pair_id.data_ptr(), p, cap,
+                           out.data_ptr(), scratch.data_ptr(),
+                           scratch.numel(), common.stream_ptr(dev)), NAME)
     return out
 
 
-def unpack(buf: np.ndarray):
-    """Host view of :func:`materialize`'s buffer: ``(pair_id, values,
-    rank_a, rank_b)`` cut at the total."""
-    cap = (len(buf) - 1) // 4
-    n = int(buf[0])
-    cols = buf[1:].reshape(4, cap)[:, :n]
-    return cols[0], cols[1], cols[2], cols[3]
+def fetch(buf: torch.Tensor):
+    """Host ``(pair_id, values, rank_a, rank_b)`` int32 arrays of a
+    :func:`materialize` buffer: its total first (8 bytes), ``ValueError``
+    when that passes the buffer's capacity, then only the total's
+    records, in one copy."""
+    cap = (int(buf.numel()) - HEADER) // 4
+    n = int(common.host_get(buffer_total(buf))[0])
+    if n > cap:
+        raise ValueError(f"{n} matches exceed the capacity {cap}")
+    rec = common.host_get(buffer_records(buf)[:n])
+    return rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3]
 
 
 def bitset_pair_materialize(bs, a_slots, b_slots, words: torch.Tensor,
@@ -110,9 +123,10 @@ def bitset_pair_materialize(bs, a_slots, b_slots, words: torch.Tensor,
     tables on the device the kernel runs on.  Returns ``(pair_id int64,
     values int32, rank_a int64, rank_b int64)``.
 
-    Transfers: the block matching's one, and the closing fetch.  The
-    output is sized by ``sum over matched blocks of min(|a|, |b|)``
-    (the per-block popcounts ``bs.card``), so no total is read first.
+    Transfers: the block matching's one, and the closing fetch (the
+    total, then its records).  The output is sized by ``sum over matched
+    blocks of min(|a|, |b|)`` (the per-block popcounts ``bs.card``), so
+    nothing is read before the kernel runs.
     """
     from repro_torch.core.intersect import intersect_pairs_uint  # avoid cycle
     a_slots = np.asarray(a_slots, np.int64)
@@ -129,8 +143,7 @@ def bitset_pair_materialize(bs, a_slots, b_slots, words: torch.Tensor,
         return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
                                device=dev)
 
-    buf = materialize(words, block_ids, index, up(pos_a), up(pos_b),
-                      up(pair_id), cap)
-    pid, vals, ra, rb = unpack(common.host_get(buf))
+    pid, vals, ra, rb = fetch(materialize(words, block_ids, index, up(pos_a),
+                                          up(pos_b), up(pair_id), cap))
     return (pid.astype(np.int64), vals.copy(), ra.astype(np.int64),
             rb.astype(np.int64))

@@ -25,7 +25,9 @@ from repro_torch.kernels.fm_interaction.ref import (fm_interaction_ref,
 from repro_torch.kernels.frontier_fill import ops as fill_ops
 from repro_torch.kernels.frontier_fill.ref import fill_ref, fold_ref
 from repro_torch.kernels.materialize import ops as mat_ops
-from repro_torch.kernels.materialize.ref import materialize_ref
+from repro_torch.kernels.materialize.ref import (HEADER, buffer_records,
+                                                 buffer_total,
+                                                 materialize_ref)
 from repro_torch.kernels.spmv_ell import ops as ell_ops
 from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
 from repro_torch.kernels.triangle_mm import ops as tri_ops
@@ -141,6 +143,15 @@ def test_cuda_tensor_never_takes_the_plain_version(dev):
         bitset_ops.bitset_and_popcount(words, pos, pos)
     with pytest.raises(TypeError):
         mat_ops.materialize(words, pos, pos, pos, pos, pos, 8)
+    # the plain version takes blocks of any width; the kernel refuses
+    # blocks wider than 8192 bits instead of falling back
+    wide = torch.zeros((4, 257), dtype=torch.int32)
+    blk = torch.zeros(4, dtype=torch.int32)
+    assert int(materialize_ref(wide, blk, blk, pos.cpu(), pos.cpu(),
+                               pos.cpu(), 8)[0]) == 0
+    with pytest.raises(ValueError, match="words"):
+        mat_ops.materialize(wide.to(dev), blk.to(dev), blk.to(dev), pos,
+                            pos, pos, 8)
     # the plain version takes any square matrix; the kernel refuses a
     # size that is not a multiple of its tile instead of falling back
     a = torch.ones((100, 100), dtype=torch.float32)
@@ -163,9 +174,9 @@ def _random_bitset(seed, block_bits):
 @pytest.mark.parametrize("block_bits", [256, 1024, 2048, 4096])
 @pytest.mark.parametrize("seed", range(2))
 def test_materialize_kernel_matches_plain(dev, seed, block_bits):
-    """Bit-equal to the plain version up to the total (one or more
-    chunks of 32 words per block), two launches per call, and the whole
-    entry equal to the host extraction."""
+    """Bit-equal to the plain version up to the total (a thread a pair at
+    256-bit blocks, a group of lanes above), one launch per call, and the
+    whole entry equal to the host extraction."""
     from repro_torch.core import intersect as I
     bs, ids = _random_bitset(seed, block_bits)
     r = np.random.default_rng(50 + seed)
@@ -178,17 +189,100 @@ def test_materialize_kernel_matches_plain(dev, seed, block_bits):
             t32(pa, dev), t32(pb, dev), t32(pair_id, dev))
     before = common.LAUNCHES["materialize"]
     got = mat_ops.materialize(*args, cap)
-    assert common.LAUNCHES["materialize"] == before + 2
+    assert common.LAUNCHES["materialize"] == before + 1
     want = materialize_ref(*args, cap)
-    total = int(want[0])
-    assert int(got[0]) == total > 0
-    assert torch.equal(got[1:].view(4, cap)[:, :total],
-                       want[1:].view(4, cap)[:, :total])
+    _assert_same_matches(got, want)
+    assert int(buffer_total(want)[0]) > 0
     out = mat_ops.bitset_pair_materialize(bs, a, b, args[0], bid, args[2])
     host = I.bitset_intersect_materialize(bs, a, b, bid)
     for x, y in zip(out, host):
         assert x.dtype == y.dtype
         np.testing.assert_array_equal(x, y)
+
+
+def _assert_same_matches(got, want):
+    """Equal totals, and equal records up to the total."""
+    total = int(buffer_total(want)[0])
+    assert int(buffer_total(got)[0]) == total
+    assert torch.equal(got[:HEADER + 4 * total], want[:HEADER + 4 * total])
+
+
+def _random_blocks(dev, seed, p, w, density, n_blocks=5000):
+    """Kernel arguments over ``n_blocks`` random blocks of ``w`` words
+    (each bit set with probability ``density``) and ``p`` random pairs of
+    them, with the capacity the engine would give them."""
+    r = np.random.default_rng(seed)
+    bits = r.random((n_blocks, w * 32), dtype=np.float32) < density
+    words = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
+    card = bits.sum(axis=1)
+    pa, pb = r.integers(0, n_blocks, (2, p))
+    args = (t32(words, dev), t32(r.integers(0, 1 << 16, n_blocks), dev),
+            t32(r.integers(0, 1 << 30, n_blocks), dev), t32(pa, dev),
+            t32(pb, dev), t32(np.sort(r.integers(0, p, p)), dev))
+    return args, int(np.minimum(card[pa], card[pb]).sum())
+
+
+@pytest.mark.parametrize("p,w", [(1, 8), (1_000_003, 8), (1, 64),
+                                 (1_000_003, 32)])
+def test_materialize_look_back_across_tiles(dev, p, w):
+    """One pair, and over a million pairs (thousands of tiles, the last
+    one partial): every tile's base slot from the look-back equals the
+    plain version's."""
+    args, cap = _random_blocks(dev, p, p, w, 0.1)
+    got = mat_ops.materialize(*args, cap)
+    _assert_same_matches(got, materialize_ref(*args, cap))
+
+
+def test_materialize_skewed_pairs(dev):
+    """Pairs whose AND holds all 256 bits beside pairs whose AND is
+    empty, in runs that straddle tiles; a capacity one short of the total
+    keeps the first records and makes ``fetch`` raise."""
+    r = np.random.default_rng(9)
+    words = np.zeros((3, 8), np.int32)
+    words[0] = -1                       # all 256 bits
+    words[2] = r.integers(-(1 << 31), 1 << 31, 8)
+    p = 5000
+    pb = np.where(r.random(p) < 0.5, 0, 1)
+    pb[r.random(p) < 0.1] = 2
+    pb[1000:1300] = 0                   # a run of full pairs
+    pb[2000:2600] = 1                   # a run of empty ones
+    args = (t32(words, dev), t32(np.arange(3), dev),
+            t32(np.array([0, 256, 512]), dev), t32(np.zeros(p), dev),
+            t32(pb, dev), t32(np.arange(p), dev))
+    cap = 256 * p
+    want = materialize_ref(*args, cap)
+    total = int(buffer_total(want)[0])
+    assert total == 256 * int((pb == 0).sum()) + int(
+        (pb == 2).sum()) * int(np.unpackbits(words[2].view(np.uint8)).sum())
+    _assert_same_matches(mat_ops.materialize(*args, cap), want)
+    short = mat_ops.materialize(*args, total - 1)
+    assert int(buffer_total(short)[0]) == total
+    assert torch.equal(short[HEADER:], want[HEADER:HEADER + 4 * (total - 1)])
+    with pytest.raises(ValueError, match="capacity"):
+        mat_ops.fetch(short)
+    exact = mat_ops.fetch(mat_ops.materialize(*args, total))
+    for x, y in zip(exact, buffer_records(want)[:total].T.cpu().numpy()):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_materialize_two_launches_are_identical(dev):
+    args, cap = _random_blocks(dev, 3, 300_001, 8, 0.2)
+    first = mat_ops.materialize(*args, cap)
+    _assert_same_matches(mat_ops.materialize(*args, cap), first)
+    assert int(buffer_total(first)[0]) > 0
+
+
+def test_materialize_makes_no_host_sync(dev):
+    """The call sizes its scratch from P alone: no read of the card."""
+    args, cap = _random_blocks(dev, 4, 100_000, 8, 0.2)
+    want = mat_ops.materialize(*args, cap)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = mat_ops.materialize(*args, cap)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _assert_same_matches(got, want)
 
 
 @pytest.mark.parametrize("n,pruned", [(512, False), (1024, True),

@@ -15,7 +15,10 @@ from repro.kernels.materialize.ref import bitset_materialize_ref as jax_ref
 from repro_torch.core import intersect as tI
 from repro_torch.kernels import common
 from repro_torch.kernels.materialize import ops as mat_ops
-from repro_torch.kernels.materialize.ref import (bitset_materialize_ref,
+from repro_torch.kernels.materialize.ref import (HEADER,
+                                                  bitset_materialize_ref,
+                                                  buffer_records,
+                                                  buffer_total,
                                                   materialize_ref)
 
 
@@ -130,25 +133,62 @@ def test_plane_oracle_matches_jax(seed):
 
 
 def test_buffer_layout_and_capacity():
-    """The plain version's buffer: the total, then four arrays of ``cap``
-    slots, zero past the total; a bound below the total raises."""
+    """The plain version's buffer: the int64 total in its own slot, then
+    ``cap`` records of 16 bytes (pair id, value, rank a, rank b), zero
+    past the total; a bound below the total raises."""
     offs, nbr = random_csr(3, universe=1500)
     ids = np.flatnonzero(np.diff(offs) > 0)
     _, tbs = both_bitsets(offs, nbr, ids, 1500, 256)
+    a, b = np.arange(len(ids)), np.arange(len(ids))[::-1].copy()
     pair_id, _, pa, pb = tI.intersect_pairs_uint(
-        tbs.offsets, tbs.block_ids, np.arange(len(ids)),
-        np.arange(len(ids))[::-1].copy(), t32(tbs.block_ids))
+        tbs.offsets, tbs.block_ids, a, b, t32(tbs.block_ids))
     cap = int(np.minimum(tbs.card[pa], tbs.card[pb]).sum())
     args = (t32(tbs.words.view(np.int32)), t32(tbs.block_ids),
             t32(tbs.index), t32(pa), t32(pb), t32(pair_id))
-    buf = mat_ops.materialize(*args, cap).numpy()
-    total = int(buf[0])
+    buf = mat_ops.materialize(*args, cap)
+    assert buf.dtype == torch.int32 and buf.shape == (HEADER + 4 * cap,)
+    total = int(buffer_total(buf)[0])
     assert 0 < total <= cap
-    assert not buf[1:].reshape(4, cap)[:, total:].any()
+    assert int(buf[:2].numpy().view(np.int64)[0]) == total
+    assert not buf[2:HEADER].any()
+    rec = buffer_records(buf).numpy()
+    assert rec.shape == (cap, 4) and rec.nbytes == 16 * cap
+    assert not rec[total:].any()
     want = int(tI.popcount_u32_np(tbs.words[pa] & tbs.words[pb]).sum())
     assert total == want
+    host = tI.bitset_intersect_materialize(tbs, a, b, t32(tbs.block_ids))
+    assert_equal_tuples(tuple(rec[:total, i] for i in range(4)),
+                        tuple(x.astype(np.int32) for x in host))
     with pytest.raises(ValueError, match="capacity"):
         materialize_ref(*args, total - 1)
+
+
+def test_pair_materialize_checks_the_total_against_cap(monkeypatch):
+    """``bitset_pair_materialize`` reads the total first and raises when
+    it passes the buffer's capacity, as the plain version does; a
+    capacity equal to the total is enough.  The buffers stand for what
+    the kernel leaves at a capacity of ``cap``: the first ``cap`` records
+    and the whole total."""
+    offs, nbr = random_csr(5, universe=2000)
+    ids = np.flatnonzero(np.diff(offs) > 0)
+    _, tbs = both_bitsets(offs, nbr, ids, 2000, 256)
+    r = np.random.default_rng(5)
+    a, b = r.integers(0, len(ids), (2, 300))
+    want = port_materialize(tbs, a, b)
+    total = len(want[0])
+    assert total > 0
+    orig = mat_ops.materialize
+
+    def kernel_with_cap(cap):
+        def run(*args):
+            return orig(*args)[:HEADER + 4 * cap].clone()
+        return run
+
+    monkeypatch.setattr(mat_ops, "materialize", kernel_with_cap(total))
+    assert_equal_tuples(port_materialize(tbs, a, b), want)
+    monkeypatch.setattr(mat_ops, "materialize", kernel_with_cap(total - 1))
+    with pytest.raises(ValueError, match="capacity"):
+        port_materialize(tbs, a, b)
 
 
 def test_wrapper_checks_its_arguments():

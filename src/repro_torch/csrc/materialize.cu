@@ -20,20 +20,25 @@
 // 256-bit blocks), but the words table (22.7 MB there) fits the 50 MB L2,
 // so that is L2 traffic and not HBM traffic: the per-pair inputs are
 // loaded, and the records stored, evict-first to keep the table there.
-// In practice a call is held by the latency of each tile's chain of
-// dependent steps (ticket, positions, rows, scan, look-back), not by
-// bandwidth (PERF.md).
+// Measured, a call lies well above that bound; chip_smoke.py's phase 8
+// times the cases that split its time (PERF.md).
 //
 // One launch a call:
 //
 // 1. A group of G lanes takes one matched pair, each lane 8 words of the
 //    two block rows in registers: G = 1 at 256-bit blocks (a thread a
-//    pair, two 16-byte loads a row), G = the power of two >= w / 8 above,
-//    chosen at launch, up to 8192-bit blocks.  It ANDs and popcounts them,
-//    scans the popcounts of a, b and a & b over the group's lanes
-//    (__shfl_up_sync within the group), and keeps both rows in shared
-//    memory with each lane's exclusive popcounts.  Each pair's inputs are
-//    read once: there is no count array and no second pass.
+//    pair, two 16-byte loads a row, so the words table must be 16-byte
+//    aligned there), G = the power of two >= w / 8 above, chosen at
+//    launch, up to 8192-bit blocks (MAX_W, which the wrapper reads from
+//    materialize_max_words).  It ANDs and popcounts them, scans the
+//    popcounts of a, b and a & b over the group's lanes (__shfl_up_sync
+//    within the group), and keeps both rows in shared memory with each
+//    lane's exclusive popcounts.  Each pair's inputs are read once: there
+//    is no count array and no second pass.  The engine's blocks are 256
+//    bits (SIMD_REGISTER_BITS), so only G = 1 runs on the query path;
+//    G = 2..32 (the lane scans, the lane-chunk search and five of the six
+//    instantiations) serve wider blocks, which only the tests use, and a
+//    single looped path for wide blocks could replace that fan-out.
 // 2. The block scans its 256 / G pairs' match counts and takes its base
 //    slot by a single-pass decoupled look-back (Merrill & Garland, 2016):
 //    it publishes its total, then its inclusive prefix, in one 64-bit
@@ -44,9 +49,9 @@
 //    ticket and the statuses are one scratch array sized from P, zeroed on
 //    the stream by cudaMemsetAsync: no cumsum, no host read.  While warp 0
 //    looks back, warps 1..7 gather what the fill needs of the pairs with
-//    matches and make their first record.
+//    matches (pair id, value base, both sets' ranks before the block).
 // 3. The block's matches fill slots [base, base + n): a thread takes slots
-//    j, j + 224, ..., finds its pair by a binary search over the block's
+//    j, j + 256, ..., finds its pair by a binary search over the block's
 //    inclusive scan, its lane chunk by one over the pair's exclusive AND
 //    counts, and its bit by selecting the r-th set bit of the AND words.
 //    Adjacent threads write adjacent 16-byte records, so a pair with 256
@@ -69,7 +74,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int FILLERS = THREADS - 32;  // warps 1..7 gather and fill
+constexpr int GATHERERS = THREADS - 32;  // warps 1..7, during the look-back
 constexpr int WPL = 8;                 // words of a block row a lane holds
 constexpr int MAX_W = 32 * WPL;        // 8192-bit blocks
 constexpr unsigned long long TOTAL = 1ull << 62;   // status: the tile's total
@@ -254,10 +259,39 @@ __global__ void __launch_bounds__(THREADS) materialize_kernel(
   __syncthreads();
 
   // 3. warp 0 takes the tile's base slot by look-back while the others
-  // gather what the fill needs of the pairs with matches and make their
-  // first record; then the matches fill slots [base, base + n_tile), a
-  // slot a thread, adjacent slots adjacent
-  auto record = [&](int j) {
+  // gather what the fill needs of the pairs with matches; then the matches
+  // fill slots [base, base + n_tile), a slot a thread, adjacent slots
+  // adjacent
+  if (warp == 0) {
+    long long excl = 0;
+    if (tile > 0) {
+      if (lane == 0) store_status(status + tile, TOTAL | (unsigned long long)n_tile);
+      excl = look_back(status, tile, lane);
+    }
+    if (lane == 0) {
+      store_status(status + tile, PREFIX | (unsigned long long)(excl + n_tile));
+      s_base = excl;
+      if (tile == tiles - 1) {
+        const long long total = excl + n_tile;
+        *reinterpret_cast<int4*>(out) =
+            make_int4((int)(total & 0xffffffffll), (int)(total >> 32), 0, 0);
+      }
+    }
+  } else {
+    for (int u = tid - 32; u < PAIRS; u += GATHERERS) {
+      if (s_cnt[u] > 0) {
+        const int32_t ua = s_pa[u];
+        s_pid[u] = __ldcs(pair_id + tile * PAIRS + u);
+        s_vbase[u] = __ldg(block_ids + ua) * (w * 32);
+        s_ia[u] = __ldg(index + ua);
+        s_ib[u] = __ldg(index + s_pb[u]);
+      }
+    }
+  }
+  __syncthreads();
+  const long long base = s_base;
+  int4* rec = reinterpret_cast<int4*>(out + 4) + base;
+  for (int j = tid; j < n_tile && base + j < cap; j += THREADS) {
     int lo = 0, hi = PAIRS - 1;  // the first pair whose inclusive scan > j
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
@@ -294,47 +328,9 @@ __global__ void __launch_bounds__(THREADS) materialize_kernel(
     }
     const int t = select_bit(x, r);
     const uint32_t below = (1u << t) - 1u;
-    return make_int4(s_pid[pq], s_vbase[pq] + (l * WPL + k) * 32 + t,
-                     s_ia[pq] + before_a + __popc(xa & below),
-                     s_ib[pq] + before_b + __popc(xb & below));
-  };
-  int4 first = make_int4(0, 0, 0, 0);
-  if (warp == 0) {
-    long long excl = 0;
-    if (tile > 0) {
-      if (lane == 0) store_status(status + tile, TOTAL | (unsigned long long)n_tile);
-      excl = look_back(status, tile, lane);
-    }
-    if (lane == 0) {
-      store_status(status + tile, PREFIX | (unsigned long long)(excl + n_tile));
-      s_base = excl;
-      if (tile == tiles - 1) {
-        const long long total = excl + n_tile;
-        *reinterpret_cast<int4*>(out) =
-            make_int4((int)(total & 0xffffffffll), (int)(total >> 32), 0, 0);
-      }
-    }
-  } else {
-    for (int u = tid - 32; u < PAIRS; u += FILLERS) {
-      if (s_cnt[u] > 0) {
-        const int32_t ua = s_pa[u];
-        s_pid[u] = __ldcs(pair_id + tile * PAIRS + u);
-        s_vbase[u] = __ldg(block_ids + ua) * (w * 32);
-        s_ia[u] = __ldg(index + ua);
-        s_ib[u] = __ldg(index + s_pb[u]);
-      }
-    }
-    asm volatile("bar.sync 1, %0;" ::"n"(FILLERS) : "memory");
-    if (tid - 32 < n_tile) first = record(tid - 32);
-  }
-  __syncthreads();
-  if (warp > 0) {
-    const long long base = s_base;
-    int4* rec = reinterpret_cast<int4*>(out + 4) + base;
-    int j = tid - 32;
-    if (j < n_tile && base + j < cap) __stcs(rec + j, first);
-    for (j += FILLERS; j < n_tile && base + j < cap; j += FILLERS)
-      __stcs(rec + j, record(j));
+    __stcs(rec + j, make_int4(s_pid[pq], s_vbase[pq] + (l * WPL + k) * 32 + t,
+                              s_ia[pq] + before_a + __popc(xa & below),
+                              s_ib[pq] + before_b + __popc(xb & below)));
   }
 }
 
@@ -351,6 +347,9 @@ cudaError_t launch(const uint32_t* words, int32_t w, const int32_t* block_ids,
 }
 
 }  // namespace
+
+// the widest block row the kernel takes, in 32-bit words
+extern "C" int32_t materialize_max_words() { return MAX_W; }
 
 // tiles (thread blocks) of a call: the scratch holds 1 + tiles int64
 extern "C" int64_t materialize_tiles(int32_t w, int64_t p) {

@@ -27,15 +27,14 @@ from repro_torch.kernels.materialize.ref import (HEADER, buffer_records,
                                                  materialize_ref)
 
 NAME = "materialize"
-# the kernel holds a pair's block rows in a warp's registers, 8 words a
-# lane: blocks of up to 8192 bits
-MAX_WORDS = 256
 
 
 def _lib():
     lib = common.library(NAME)
     fn, tiles = lib.materialize, lib.materialize_tiles
     if fn.argtypes is None:
+        lib.materialize_max_words.argtypes = []
+        lib.materialize_max_words.restype = ctypes.c_int32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -44,7 +43,7 @@ def _lib():
         fn.restype = ctypes.c_int
         tiles.argtypes = [ctypes.c_int32, ctypes.c_int64]
         tiles.restype = ctypes.c_int64
-    return fn, tiles
+    return fn, tiles, lib.materialize_max_words()
 
 
 def materialize(words: torch.Tensor, block_ids: torch.Tensor,
@@ -54,8 +53,9 @@ def materialize(words: torch.Tensor, block_ids: torch.Tensor,
     """Every set bit of ``words[pos_a[p]] & words[pos_b[p]]`` with its
     pair id, value and rank in both sets.
 
-    words : [B, W] int32 view of the uint32 bitvector blocks (W <= 256
-        and 16-byte aligned on the card)
+    words : [B, W] int32 view of the uint32 bitvector blocks (on the
+        card, W up to the kernel's ``materialize_max_words``, 256, and
+        16-byte aligned at W = 8, where a row is two 16-byte loads)
     block_ids, index : [B] int32 block number and cumulative cardinality
         of the set before the block (``BlockedBitset.block_ids/index``)
     pos_a, pos_b, pair_id : [P] int32 matched block rows and their pair
@@ -80,16 +80,18 @@ def materialize(words: torch.Tensor, block_ids: torch.Tensor,
     if not common.kernel_device(words, NAME):
         return materialize_ref(words, block_ids, index, pos_a, pos_b,
                                pair_id, cap)
+    fn, tiles, max_words = _lib()
     w = int(words.shape[1])
-    if not 1 <= w <= MAX_WORDS or words.data_ptr() % 16:
-        raise ValueError(f"words: the kernel takes 16-byte aligned rows of "
-                         f"1 to {MAX_WORDS} words, got {w}")
+    if not 1 <= w <= max_words:
+        raise ValueError(f"words: the kernel takes rows of 1 to {max_words} "
+                         f"words, got {w}")
+    if w == 8 and words.data_ptr() % 16:
+        raise ValueError("words: rows of 8 words must be 16-byte aligned")
     p = int(pos_a.shape[0])
     out = torch.empty(HEADER + 4 * cap, dtype=torch.int32, device=dev)
     if p == 0:
         out[:HEADER] = 0
         return out
-    fn, tiles = _lib()
     # the ticket and one status word a tile; freed on return, reused only
     # by work queued after this call on the same stream
     scratch = torch.empty(1 + tiles(w, p), dtype=torch.int64, device=dev)

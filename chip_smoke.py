@@ -779,6 +779,99 @@ def materialize_cases(args, mat_ops, plain, time_ms, torch):
             f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
 
 
+def fold_work(args, torch):
+    """Candidates, bytes and int32 operations of one ``frontier_fold``
+    call: each per-row array, level, annotation and output once; each
+    candidate's seed read and one lockstep search (bit_length(n_k) steps)
+    a probe, 4 operations a step."""
+    lo0, cnt, seed, probes, anns, sr = args
+    cands = int(cnt.long().sum())
+    steps = sum(max(1, int(v.shape[0]).bit_length()) for v, _l, _h in probes)
+    sr_bytes = torch.empty((), dtype=sr.dtype).element_size()
+    moved = (sum(t.numel() * t.element_size() for t in (lo0, cnt, seed))
+             + sum(t.numel() * t.element_size() for p in probes for t in p)
+             + sum(a.numel() * a.element_size() for a in anns
+                   if a is not None)
+             + int(lo0.shape[0]) * (4 + sr_bytes))
+    return cands, moved, cands * (steps + 2) * 4
+
+
+def fold_equal(got, want, sr, torch):
+    """Support bit for bit; the fold bit for bit, or for a float sum
+    within float32 rounding of its terms' order (rtol 1e-5)."""
+    if not torch.equal(got[1], want[1]):
+        return False
+    if sr.name.startswith("sum_f"):
+        return torch.allclose(got[0], want[0], rtol=1e-5, atol=0)
+    return torch.equal(got[0], want[0])
+
+
+def fold_cases(args, fill_ops, plain, time_ms, torch):
+    """``frontier_fold`` on cases built from the captured call's own
+    arguments: (a) the call as it is; (b) the same arrays with no
+    candidate (the cost of the capacity alone); (c) the per-row arrays
+    cut to the live prefix, the rows up to the last with a candidate
+    (the cost of the candidates alone); (d) case (c) with only the first
+    probe (the share of the searches).  Each held against the plain
+    version, two launches equal, timed (CUDA events, L2 flushed, median
+    of 5): printed lines, not table rows."""
+    lo0, cnt, seed, probes, anns, sr = args
+    live = torch.nonzero(cnt).flatten()
+    cut = int(live[-1]) + 1 if live.numel() else 1
+    cut_probes = tuple((v, lo[:cut], hi[:cut]) for v, lo, hi in probes)
+    cases = (
+        ("(a) the captured call", args),
+        ("(b) no candidate", (lo0, torch.zeros_like(cnt), seed, probes,
+                              anns, sr)),
+        ("(c) live prefix", (lo0[:cut], cnt[:cut], seed, cut_probes, anns,
+                             sr)),
+        ("(d) live prefix, one probe", (lo0[:cut], cnt[:cut], seed,
+                                        cut_probes[:1], anns[:2], sr)))
+    for label, case in cases:
+        if label.startswith("(d)") and not probes:
+            continue
+        got = fill_ops.fold(*case)
+        check(fold_equal(got, plain(*case), sr, torch),
+              f"frontier_fold, {label}: differs from its plain version")
+        again = fill_ops.fold(*case)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"frontier_fold, {label}: two launches differ")
+        ms = time_ms(lambda: fill_ops.fold(*case), 5)
+        cands, moved, ops = fold_work(case, torch)
+        log(f"[kernel] frontier_fold, {label}: rows={int(case[0].shape[0])} "
+            f"live_rows={int((case[1] > 0).sum())} candidates={cands} "
+            f"probes={len(case[3])} semiring={sr.name}; equal to the plain "
+            f"version, two launches equal; kernel {ms:.4f} ms (CUDA events, "
+            f"L2 flushed, median of 5), bound {ops / INT32_OPS_PER_S * 1e3:.4f}"
+            f" ms (operations), bytes alone "
+            f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved} bytes)")
+
+
+def ptxas_lines(report):
+    """One line for each entry function of an ``nvcc -Xptxas=-v``
+    report: its (demangled) name, registers, stack frame and spills."""
+    import re
+    import shutil
+    rows, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?([\w$]+)",
+                      line)
+        if m:
+            name = m.group(1)
+            rows.setdefault(name, [])
+        elif name and ("registers" in line or "stack frame" in line):
+            rows[name].append(line.split(":", 1)[-1].strip()
+                              if "registers" in line else line.strip())
+    names = list(rows)
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = out.stdout.splitlines()
+    return [f"{shown}: {'; '.join(rows[raw])}"
+            for shown, raw in zip(names, rows)]
+
+
 def warm_wall(fn, torch, reps=FM_REPS):
     """Median host wall of ``reps`` calls of ``fn``, each ending in
     ``torch.cuda.synchronize()``, after one untimed call."""
@@ -962,9 +1055,8 @@ def main():
     log(f"[build] {len(reports)} of {len(common.KERNEL_SOURCES)} kernels "
         f"compiled in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for line in ptxas_lines(rep):
+            log(f"[build] {name}: {line}")
 
     # ------------------------------------------------------ 2. main path
     captures = {
@@ -1108,9 +1200,6 @@ def main():
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def sr_size(sr):
-        return torch.empty((), dtype=sr.dtype).element_size()
-
     def max_err(a, b):
         a, b = list(a), list(b)
         check(len(a) == len(b), "output arity differs")
@@ -1156,16 +1245,12 @@ def main():
             lo0, cnt, seed, probes, anns, sr = args
             kern = lambda: fill_ops.fold(*args)                   # noqa: E731
             plain = lambda: fold_ref(*args)                       # noqa: E731
-            cands = int(cnt.long().sum())
-            steps = sum(max(1, int(v.shape[0]).bit_length())
-                        for v, _l, _h in probes)
-            moved = (nbytes(lo0, cnt, seed) + sum(nbytes(*p) for p in probes)
-                     + sum(nbytes(a) for a in anns if a is not None)
-                     + int(lo0.shape[0]) * (4 + sr_size(sr)))
-            ops = cands * (steps + 2) * 4
+            cands, moved, ops = fold_work(args, torch)
             shape = (f"rows={int(lo0.shape[0])} candidates={cands} "
                      f"n0={int(seed.shape[0])} probes={len(probes)} "
-                     f"semiring={sr.name}")
+                     f"semiring={sr.name}; bytes alone "
+                     f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
+            fold_cases(args, fill_ops, fold_ref, time_ms, torch)
         elif name == "bitset_intersect":
             words, pa, pb = args
             kern = lambda: bitset_ops.bitset_and_popcount(*args)  # noqa: E731

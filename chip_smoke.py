@@ -12,7 +12,8 @@ time) after the main and the materializing path.
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. build: compile every CUDA kernel of the port from ``src/repro_torch/csrc``
-   with nvcc for sm_90a (one nvcc per source, in parallel);
+   with nvcc for sm_90a (one nvcc per source, in parallel), and print each
+   kernel's ptxas line (registers, stack frame, spills);
 2. main path, with every kernel launch counter set to 0 just before and
    read just after: ``Engine(backend="device")`` runs the Table 2 queries
    TRIANGLE_COUNT, LOLLIPOP and BARBELL (cold, then warm: plans, layout
@@ -77,6 +78,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    up to its total, two launches equal, with the closing fetch of the
    whole buffer and of the total's records timed, and three more cases:
    every AND full, no match, and no match with every row from L1;
+   ``frontier_fold`` two launches equal, with the bytes alone beside its
+   operation bound, and four cases built from its captured call, each
+   held and timed the same way: the call as it is, with no candidate, cut
+   to its live prefix, and that prefix with one probe;
    ``triangle_mm`` against the float64 count), or for
    ``spmv_ell`` within 1e-5 of each vertex's absolute sum of the plain
    version's sums taken in float64 (the float32 plain version's own
@@ -784,16 +789,23 @@ def fold_work(args, torch):
     call: each per-row array, level, annotation and output once; each
     candidate's seed read and one lockstep search (bit_length(n_k) steps)
     a probe, 4 operations a step."""
-    lo0, cnt, seed, probes, anns, sr = args
-    cands = int(cnt.long().sum())
+    lo0, offs, total, seed, probes, anns, sr = args
+    cands = int(total)
     steps = sum(max(1, int(v.shape[0]).bit_length()) for v, _l, _h in probes)
     sr_bytes = torch.empty((), dtype=sr.dtype).element_size()
-    moved = (sum(t.numel() * t.element_size() for t in (lo0, cnt, seed))
+    moved = (sum(t.numel() * t.element_size()
+                 for t in (lo0, offs, total, seed))
              + sum(t.numel() * t.element_size() for p in probes for t in p)
              + sum(a.numel() * a.element_size() for a in anns
                    if a is not None)
              + int(lo0.shape[0]) * (4 + sr_bytes))
     return cands, moved, cands * (steps + 2) * 4
+
+
+def fold_counts(args, torch):
+    """Each row's candidates in a ``frontier_fold`` call."""
+    offs, total = args[1], args[2]
+    return torch.cat([offs[1:], total.reshape(1)]) - offs
 
 
 def fold_equal(got, want, sr, torch):
@@ -815,17 +827,18 @@ def fold_cases(args, fill_ops, plain, time_ms, torch):
     probe (the share of the searches).  Each held against the plain
     version, two launches equal, timed (CUDA events, L2 flushed, median
     of 5): printed lines, not table rows."""
-    lo0, cnt, seed, probes, anns, sr = args
-    live = torch.nonzero(cnt).flatten()
+    lo0, offs, total, seed, probes, anns, sr = args
+    live = torch.nonzero(fold_counts(args, torch)).flatten()
     cut = int(live[-1]) + 1 if live.numel() else 1
     cut_probes = tuple((v, lo[:cut], hi[:cut]) for v, lo, hi in probes)
     cases = (
         ("(a) the captured call", args),
-        ("(b) no candidate", (lo0, torch.zeros_like(cnt), seed, probes,
-                              anns, sr)),
-        ("(c) live prefix", (lo0[:cut], cnt[:cut], seed, cut_probes, anns,
-                             sr)),
-        ("(d) live prefix, one probe", (lo0[:cut], cnt[:cut], seed,
+        ("(b) no candidate", (lo0, torch.zeros_like(offs),
+                              torch.zeros_like(total), seed, probes, anns,
+                              sr)),
+        ("(c) live prefix", (lo0[:cut], offs[:cut], total, seed, cut_probes,
+                             anns, sr)),
+        ("(d) live prefix, one probe", (lo0[:cut], offs[:cut], total, seed,
                                         cut_probes[:1], anns[:2], sr)))
     for label, case in cases:
         if label.startswith("(d)") and not probes:
@@ -839,8 +852,9 @@ def fold_cases(args, fill_ops, plain, time_ms, torch):
         ms = time_ms(lambda: fill_ops.fold(*case), 5)
         cands, moved, ops = fold_work(case, torch)
         log(f"[kernel] frontier_fold, {label}: rows={int(case[0].shape[0])} "
-            f"live_rows={int((case[1] > 0).sum())} candidates={cands} "
-            f"probes={len(case[3])} semiring={sr.name}; equal to the plain "
+            f"live_rows={int((fold_counts(case, torch) > 0).sum())} "
+            f"candidates={cands} probes={len(case[4])} semiring={sr.name}; "
+            f"equal to the plain "
             f"version, two launches equal; kernel {ms:.4f} ms (CUDA events, "
             f"L2 flushed, median of 5), bound {ops / INT32_OPS_PER_S * 1e3:.4f}"
             f" ms (operations), bytes alone "
@@ -1242,7 +1256,7 @@ def main():
             shape = (f"slots={n} live={live} cap_in={int(offs.shape[0])} "
                      f"n0={int(seed.shape[0])} probes={len(probes)}")
         elif name == "frontier_fold":
-            lo0, cnt, seed, probes, anns, sr = args
+            lo0, offs, total, seed, probes, anns, sr = args
             kern = lambda: fill_ops.fold(*args)                   # noqa: E731
             plain = lambda: fold_ref(*args)                       # noqa: E731
             cands, moved, ops = fold_work(args, torch)

@@ -601,10 +601,11 @@ def _extend_body(count, overflow, seed, probes, sideways, carry, *,
 def _fold_body(count, seed, probes, ann, leaf_anns, carry, *,
                cap_in: int, morsel: int, sr: Semiring):
     """Terminal-fold companion of ``_extend_body``: identical counting
-    pass, then ONE ``frontier_fold`` launch reduces each row's candidates
-    (probed like the fill's) straight onto the row with the semiring —
-    nothing is materialized, so no output capacity, no overflow and no
-    size to read.  ``chunks`` is the number of morsel chunks the
+    pass, then ONE ``frontier_fold`` call, over the scan's offsets and
+    its device-side total, reduces each row's candidates (probed like the
+    fill's) straight onto the row with the semiring — nothing is
+    materialized, so no output capacity, no overflow and no size to
+    read.  ``chunks`` is the number of morsel chunks the
     reference's fold loop runs.  Returns the support-compacted frontier
     (rows with an empty candidate intersection are NOT derived — same
     rule as the host fold)."""
@@ -614,7 +615,7 @@ def _fold_body(count, seed, probes, ann, leaf_anns, carry, *,
                                                     count)
     if probes:
         lo0, hi0 = _clip_seed(seed_values, lo0, hi0, gmin, gmax)
-    cnt, _offs, total = _scan(alive, lo0, hi0)
+    cnt, offs, total = _scan(alive, lo0, hi0)
 
     plain = not probes and all(la is None for la in leaf_anns)
     if plain and sr.name == "count":
@@ -627,8 +628,8 @@ def _fold_body(count, seed, probes, ann, leaf_anns, carry, *,
         chunks = _chunks(total, morsel)
         anns = tuple(None if la is None else la.to(sr.dtype).contiguous()
                      for la in leaf_anns)
-        folded, supp = ff_ops.fold(lo0, cnt, seed_values, tuple(bounds),
-                                   anns, sr)
+        folded, supp = ff_ops.fold(lo0, offs, total, seed_values,
+                                   tuple(bounds), anns, sr)
 
     ann_new = sr.mul(ann, folded.to(ann.dtype))
     support = supp > 0

@@ -17,23 +17,15 @@
 // the same clip rules; a loop that stops once lo == hi returns what the
 // fixed 34-step loop returns, so positions and membership are bit-exact.
 //
-// The same source holds frontier_fold, the device terminal fold's
-// expansion.  The reference folds inside the bag program with a
-// data-dependent jnp while-loop over fill chunks (src/repro/core/
-// backend.py:1091, _fold_body); eagerly on the card that loop would need
-// the expansion total on the host, so the fold is one kernel instead:
-// one warp per frontier row walks the row's (clipped) seed segment, runs
-// the same lockstep probe searches, multiplies the leaf annotations in
-// and reduces the kept contributions with the semiring's add (lane-strided,
-// then a fixed shuffle tree: deterministic), writing folded[row] and the
-// support count.  No slot is materialized, so no size is needed at all.
-//
 // What bounds it on the H100: dependent loads.  Each slot does
 // log2(cap_in) + sum_k log2(segment_k) scattered 4-byte reads; there is
 // no arithmetic to speak of.  Design: one thread per slot, 256 threads a
 // block, read-only loads through the texture path (__ldg), so neighbouring
 // slots of one row share the cached top levels of each search.  No shared
 // memory: segments are per row and of unbounded length.
+//
+// The same source holds frontier_fold, the device terminal fold (its own
+// header below).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,144 +102,609 @@ __global__ void frontier_fill_kernel(
 }
 
 // ------------------------------------------------------------- the fold
+// frontier_fold: the device terminal fold.  Replaces no Pallas kernel: the
+// reference folds inside the bag program with a data-dependent jnp
+// while-loop over fill chunks (src/repro/core/backend.py:1091,
+// _fold_body): candidate j in [0, total) finds its row by searchsorted
+// over the exclusive-scan offsets, is probed like a fill slot, and its
+// semiring contribution (one times the leaf annotations at its positions)
+// is segment-reduced onto the row with the support count.  Eagerly on the
+// card that loop would need the total on the host, so the fold is one
+// kernel here (and a small fix-up), reading the total on the device.
+//
+// What bounds it on the H100: loads, not bytes.  Each candidate reads its
+// seed value and, for each probe, searches the row's probe segment for its
+// lower bound: scattered 4-byte reads, log2 of the segment of them; the
+// per-row arrays (offs, lo0, the probes' bounds, the outputs) are read or
+// written once.  The capacity cap_in comes from the planner's estimate and
+// most of its rows may be dead, so a design that pays per row (a warp
+// each) pays for rows with nothing.
+//
+// Design: merge-path balancing over the live candidates (Merrill &
+// Garland, SC'16), as in spmv_ell.cu.
+//   1. The work is the merge of the cap_in row ends with the total
+//      candidates: cap_in + total items, total read on the device.  The
+//      grid comes from the card (kWaves times the blocks that fit on its
+//      SMs at once, at most kMaxBlocks), not from the data; block b takes
+//      an equal share of the items, whole tiles of kTile, so a hub row
+//      spans blocks and a run of empty rows costs one item a row.
+//   2. Two warps find the share's ends on the merge path (32-way searches
+//      of offs); then a thread each finds the block's tile boundaries
+//      inside them.  A tile stages its rows' ends in shared memory.
+//   3. The probes, warp by warp over 32 consecutive candidates at a time:
+//      a lane finds its candidate's row among the staged ends, the seed
+//      values are read coalesced, and the lanes of one row search the same
+//      segment in lockstep.  A row's candidates ascend, so their lower
+//      bounds do too: a lane's search starts where the warp's previous 32
+//      left its row, not at the segment's start.  The searches of all
+//      probes advance together, their loads in flight at once.  Every
+//      position equals the reference's lockstep lower bound, clip rules
+//      included, because the segment is sorted (a trie level); a
+//      candidate below the last of the previous 32 (never on a sorted
+//      seed segment) searches the whole segment.
+//   4. Reduction without atomics.  Each thread takes kItems consecutive
+//      items of the tile's merge and folds their contributions in order;
+//      a row it ends after its first one goes straight to shared memory;
+//      its first row may have begun in the threads before it, so a
+//      block-wide segmented scan by row over the threads' carries (and the
+//      carry of the block's previous tile) completes it.  The tile's rows
+//      are then written coalesced.  The row still open at the share's end
+//      leaves a (row, partial, hits) carry in scratch sized from
+//      kMaxBlocks; a second, small kernel adds to each row that a block
+//      completed the carries of the blocks before it for that row, in a
+//      fixed order.  Two launches on the same card give the same bits for
+//      every semiring, float sums included; the order differs from a
+//      sequential sum, so a float sum agrees with the plain version within
+//      float32 rounding.
+//   5. The probe count is a template parameter (0, 1, 2, and a path for
+//      up to FF_MAX_PROBES); the descriptors are __grid_constant__ and
+//      indexed only by unrolled constants, so no thread copies them.
+// Rows with no candidate get the semiring's zero and support 0.
+
 struct FoldAnns {
   const void* p[FF_MAX_PROBES + 1];  // [0]: seed atom, [k + 1]: probe k
   int32_t n[FF_MAX_PROBES + 1];
 };
 
+namespace fold {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// Items of the merge a thread walks: odd, so that lanes walking a run of
+// candidates touch shared memory at an odd stride, free of bank conflicts.
+constexpr int kItems = 7;
+constexpr int kTile = kThreads * kItems;
+// The most blocks a launch takes: the carries' scratch holds one slot each.
+constexpr int kMaxBlocks = 4096;
+// Blocks a launch takes for each that fits on an SM at once: more, smaller
+// shares even out the blocks whose items cost more than others'.
+constexpr int kWaves = 4;
+constexpr unsigned kFull = 0xffffffffu;
+
 // Semiring ops by code: 0 (+, *) count/sum, 1 (min, +) min_plus,
 // 2 (max, min) max_min, 3 (or, and) boolean.
-template <typename T>
-__device__ __forceinline__ T sr_add(int op, T a, T b) {
-  switch (op) {
-    case 0: return a + b;
-    case 1: return b < a ? b : a;
-    case 2: return b > a ? b : a;
-    default: return (T)(a || b);
-  }
+template <int OP, typename T>
+__device__ __forceinline__ T sr_add(T a, T b) {
+  if constexpr (OP == 0) return a + b;
+  else if constexpr (OP == 1) return b < a ? b : a;
+  else if constexpr (OP == 2) return b > a ? b : a;
+  else return (T)(a || b);
+}
+
+template <int OP, typename T>
+__device__ __forceinline__ T sr_mul(T a, T b) {
+  if constexpr (OP == 0) return a * b;
+  else if constexpr (OP == 1) return a + b;
+  else if constexpr (OP == 2) return b < a ? b : a;
+  else return (T)(a && b);
 }
 
 template <typename T>
-__device__ __forceinline__ T sr_mul(int op, T a, T b) {
-  switch (op) {
-    case 0: return a * b;
-    case 1: return a + b;
-    case 2: return b < a ? b : a;
-    default: return (T)(a && b);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T shfl_down(T v, int o) {
-  return __shfl_down_sync(0xffffffffu, v, o);
+__device__ __forceinline__ T shfl_up(T v, int o) {
+  return __shfl_up_sync(kFull, v, o);
 }
 
 template <>
-__device__ __forceinline__ uint8_t shfl_down<uint8_t>(uint8_t v, int o) {
-  return (uint8_t)__shfl_down_sync(0xffffffffu, (int)v, o);
+__device__ __forceinline__ uint8_t shfl_up<uint8_t>(uint8_t v, int o) {
+  return (uint8_t)__shfl_up_sync(kFull, (int)v, o);
 }
 
 template <typename T>
-__global__ void frontier_fold_kernel(
-    const int32_t* __restrict__ lo0, const int32_t* __restrict__ cnt,
-    int32_t cap_in, const int32_t* __restrict__ seed, int32_t n0,
-    FillProbes probes, FoldAnns anns, int op, T zero, T one,
-    T* __restrict__ folded, int32_t* __restrict__ supp) {
-  int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int lane = threadIdx.x & 31;
-  if (warp >= cap_in) return;  // uniform across the warp
-  int32_t row = (int32_t)warp;
-  int32_t base = __ldg(lo0 + row);
-  int32_t c = __ldg(cnt + row);
-  T acc = zero;
+__device__ __forceinline__ T shfl_xor(T v, int o) {
+  return __shfl_xor_sync(kFull, v, o);
+}
+
+template <>
+__device__ __forceinline__ uint8_t shfl_xor<uint8_t>(uint8_t v, int o) {
+  return (uint8_t)__shfl_xor_sync(kFull, (int)v, o);
+}
+
+// The end of row x on the candidate axis (its inclusive scan).
+__device__ __forceinline__ int32_t row_end(const int32_t* __restrict__ offs,
+                                           int32_t total, int32_t cap_in,
+                                           int64_t x) {
+  return x + 1 < cap_in ? __ldg(offs + x + 1) : total;
+}
+
+// The merge-path coordinate on diagonal d: the least x in [lo, hi] with
+// row_end(x) + x >= d (the row ends consumed; d - x candidates).  The
+// whole warp searches, 32 probes a step.
+__device__ __forceinline__ int64_t warp_path_search(
+    const int32_t* __restrict__ offs, int32_t total, int32_t cap_in,
+    int64_t d, int64_t lo, int64_t hi) {
+  const int lane = threadIdx.x & 31;
+  while (lo < hi) {  // lo and hi are the same in every lane
+    const int64_t p = lo + (hi - lo) * (lane + 1) / 33;  // in [lo, hi)
+    const bool right = (int64_t)row_end(offs, total, cap_in, p) + p >= d;
+    const unsigned m = __ballot_sync(kFull, right);
+    const int k = m ? __ffs(m) - 1 : 32;  // first probe on the right
+    const int64_t at = __shfl_sync(kFull, p, k & 31);
+    const int64_t before = __shfl_sync(kFull, p, (k + 31) & 31);
+    hi = k < 32 ? at : hi;
+    lo = k > 0 ? before + 1 : lo;
+  }
+  return lo;
+}
+
+// The same coordinate by one thread's binary search.
+__device__ __forceinline__ int64_t path_search(
+    const int32_t* __restrict__ offs, int32_t total, int32_t cap_in,
+    int64_t d, int64_t lo, int64_t hi) {
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if ((int64_t)row_end(offs, total, cap_in, mid) + mid >= d) hi = mid;
+    else lo = mid + 1;
+  }
+  return lo;
+}
+
+template <typename I>
+__device__ __forceinline__ I imin(I a, I b) {
+  return a < b ? a : b;
+}
+
+template <typename I>
+__device__ __forceinline__ I imax(I a, I b) {
+  return a < b ? b : a;
+}
+
+__device__ __forceinline__ int32_t level_at(const int32_t* __restrict__ vals,
+                                            int32_t n, int32_t p) {
+  return __ldg(vals + clamp_i32(p, 0, n - 1));
+}
+
+template <typename T, int OP, int NP>
+__global__ void __launch_bounds__(kThreads) fold_kernel(
+    const int32_t* __restrict__ lo0, const int32_t* __restrict__ offs,
+    const int32_t* __restrict__ total_c, int32_t cap_in,
+    const int32_t* __restrict__ seed, int32_t n0,
+    const __grid_constant__ FillProbes probes,
+    const __grid_constant__ FoldAnns anns, T zero, T one,
+    T* __restrict__ folded, int32_t* __restrict__ supp,
+    int32_t* __restrict__ carry_row, T* __restrict__ carry_val,
+    int32_t* __restrict__ carry_hits) {
+  __shared__ int32_t s_end[kTile];   // the tile's row ends, less its ys
+  __shared__ T s_contrib[kTile];     // per candidate: its contribution
+  __shared__ uint8_t s_keep[kTile];  // and whether every probe holds it
+  __shared__ T s_fold[kTile];        // per row: the fold and support of
+  __shared__ int32_t s_supp[kTile];  // the rows the tile completes
+  __shared__ int32_t s_tx[kThreads + 1];  // row coordinates of tile starts
+  __shared__ int64_t s_path[2];
+  __shared__ int32_t s_wkey[kWarps], s_whits[kWarps];
+  __shared__ T s_wval[kWarps];
+  __shared__ T s_cval;               // the open row's carry between tiles
+  __shared__ int32_t s_chits;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int np = NP < FF_MAX_PROBES ? NP : probes.count;
+  const int32_t total = __ldg(total_c);
+  const int64_t items = (int64_t)cap_in + total;
+  int64_t share = (items + gridDim.x - 1) / gridDim.x;
+  share = (share + kTile - 1) / kTile * kTile;
+  const int64_t d0 = imin((int64_t)blockIdx.x * share, items);
+  const int64_t d1 = imin(d0 + share, items);
+
+  // 1. the share's start x0 and end x1 on the merge path
+  if (warp < 2) {
+    const int64_t d = warp == 0 ? d0 : d1;
+    const int64_t p = warp_path_search(offs, total, cap_in, d,
+                                       imax(d - total, (int64_t)0),
+                                       imin(d, (int64_t)cap_in));
+    if (lane == 0) s_path[warp] = p;
+  }
+  if (tid == 0) {
+    s_cval = zero;
+    s_chits = 0;
+  }
+  __syncthreads();
+  const int64_t x0 = s_path[0], x1 = s_path[1];
+  const int64_t tiles = (d1 - d0 + kTile - 1) / kTile;
+  const T* ann0 = static_cast<const T*>(anns.p[0]);
+
+  for (int64_t t0 = 0; t0 < tiles; t0 += kThreads) {
+    // 2. the row coordinates of tile starts t0 .. t0 + nb (the last: d1)
+    const int nb = (int)imin((int64_t)kThreads, tiles - t0);
+    for (int i = tid; i <= nb; i += kThreads) {
+      const int64_t d = imin(d0 + (t0 + i) * kTile, d1);
+      s_tx[i] = (int32_t)path_search(offs, total, cap_in, d,
+                                     imax(x0, d - total), imin(x1, d));
+    }
+    __syncthreads();
+    for (int t = 0; t < nb; ++t) {
+      const int64_t ds = d0 + (t0 + t) * kTile;
+      const int64_t de = imin(ds + kTile, d1);
+      const int32_t xs = s_tx[t], xe = s_tx[t + 1];
+      const int32_t ys = (int32_t)(ds - xs), ye = (int32_t)(de - xe);
+      const int rows = xe - xs, ncand = ye - ys, tile_items = rows + ncand;
+      for (int r = tid; r < rows; r += kThreads)
+        s_end[r] = row_end(offs, total, cap_in, xs + r) - ys;
+      __syncthreads();
+
+      // this thread's items [dt, dt_end) start at (xr0, yc0) in the tile
+      const int dt = imin(tid * kItems, tile_items);
+      const int dt_end = imin(dt + kItems, tile_items);
+      int lo = imax(dt - ncand, 0), hi = imin(dt, rows);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (s_end[mid] + mid >= dt) hi = mid; else lo = mid + 1;
+      }
+      const int xr0 = lo, yc0 = dt - lo;
+
+      // 3. the probes: each warp takes a contiguous part of the tile's
+      // candidates, 32 consecutive ones a round (their seed values read
+      // coalesced, and a row's lanes searching the same segment).  A row's
+      // positions ascend with its candidates, so a lane's search in each
+      // probe segment starts where the warp's previous round left its row;
+      // the searches of all probes advance in lockstep, their loads
+      // overlapping
+      {
+        constexpr int NPA = NP > 0 ? NP : 1;
+        const int per_warp = ((ncand + kWarps - 1) / kWarps + 31) & ~31;
+        const int c_begin = imin(warp * per_warp, ncand);
+        const int c_end = imin(c_begin + per_warp, ncand);
+        int prev_row = -1;
+        int32_t prev_v = 0, prev_pos[NPA] = {};
+        for (int cb = c_begin; cb < c_end; cb += 32) {
+          const int c = cb + lane;
+          const bool act = c < c_end;
+          // the candidate's row: the least r with r == rows or s_end[r] > c,
+          // no earlier than the previous round's
+          int r = -1;
+          int32_t p0 = 0;
+          if (act) {
+            int rlo = imax(prev_row, 0), rhi = rows;
+            while (rlo < rhi) {
+              const int mid = (rlo + rhi) >> 1;
+              if (s_end[mid] > c) rhi = mid; else rlo = mid + 1;
+            }
+            r = rlo;
+            p0 = __ldg(lo0 + xs + r) + (ys + c - __ldg(offs + xs + r));
+          }
+          const int32_t v =
+              act ? __ldg(seed + clamp_i32(p0, 0, n0 > 0 ? n0 - 1 : 0))
+                  : INT32_MAX;
+          T contrib = one;
+          if (ann0 != nullptr && act)
+            contrib = sr_mul<OP>(contrib,
+                                 ann0[clamp_i32(p0, 0, anns.n[0] - 1)]);
+          // a candidate after the last of the previous round in its row has
+          // its positions no earlier than that one's
+          const bool carried = act && r == prev_row && v >= prev_v;
+          const int32_t row = xs + (act ? r : 0);
+          int32_t pos[NPA], phi[NPA], len[NPA];
+#pragma unroll
+          for (int q = 0; q < NP; ++q) {
+            if (q < np) {
+              const int32_t plo = act ? __ldg(probes.p[q].lo + row) : 0;
+              phi[q] = act ? __ldg(probes.p[q].hi + row) : 0;
+              pos[q] = carried ? imax(prev_pos[q], plo) : plo;
+              len[q] = act && probes.p[q].n > 0 ? imax(phi[q] - pos[q], 0)
+                                                : 0;
+            }
+          }
+          for (bool more = NP > 0; more;) {
+            int32_t x[NPA];
+#pragma unroll
+            for (int q = 0; q < NP; ++q)
+              if (q < np && len[q] > 0)
+                x[q] = level_at(probes.p[q].vals, probes.p[q].n,
+                                pos[q] + (len[q] >> 1));
+            more = false;
+#pragma unroll
+            for (int q = 0; q < NP; ++q) {
+              if (q < np && len[q] > 0) {
+                const int32_t half = len[q] >> 1;
+                if (x[q] < v) {
+                  pos[q] += half + 1;
+                  len[q] -= half + 1;
+                } else {
+                  len[q] = half;
+                }
+                more = more || len[q] > 0;
+              }
+            }
+          }
+          bool keep = act;
+#pragma unroll
+          for (int q = 0; q < NP; ++q) {
+            if (q < np) {
+              const int32_t n = probes.p[q].n;
+              keep = keep && n > 0 && pos[q] < phi[q] &&
+                     level_at(probes.p[q].vals, n, pos[q]) == v;
+              const T* an = static_cast<const T*>(anns.p[q + 1]);
+              if (an != nullptr && act)
+                contrib = sr_mul<OP>(
+                    contrib, an[clamp_i32(pos[q], 0, anns.n[q + 1] - 1)]);
+              prev_pos[q] = __shfl_sync(kFull, pos[q], 31);
+            }
+          }
+          prev_row = __shfl_sync(kFull, r, 31);
+          prev_v = __shfl_sync(kFull, v, 31);
+          if (act) {
+            s_contrib[c] = contrib;
+            s_keep[c] = keep;
+          }
+        }
+      }
+      __syncthreads();
+
+      // 4. fold this thread's items in order
+      int xr = xr0, yc = yc0;
+      T acc = zero, first = zero;
+      int32_t hits = 0, first_hits = 0;
+      bool ended = false;
+      for (int k = dt; k < dt_end; ++k) {
+        if (xr < rows && s_end[xr] <= yc) {  // row xs + xr ends here
+          if (!ended) {
+            ended = true;
+            first = acc;
+            first_hits = hits;
+          } else {
+            s_fold[xr] = acc;
+            s_supp[xr] = hits;
+          }
+          acc = zero;
+          hits = 0;
+          ++xr;
+        } else {
+          if (s_keep[yc]) {
+            acc = sr_add<OP>(acc, s_contrib[yc]);
+            ++hits;
+          }
+          ++yc;
+        }
+      }
+
+      // the threads' carries (xr, acc, hits): a segmented inclusive scan
+      // by row in the warp, then across the warps in order, after the
+      // tile's carry (whose row is the tile's first, 0)
+      T inc = acc;
+      int32_t ih = hits;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int k2 = __shfl_up_sync(kFull, xr, o);
+        const T v2 = shfl_up(inc, o);
+        const int32_t h2 = __shfl_up_sync(kFull, ih, o);
+        if (lane >= o && k2 == xr) {
+          inc = sr_add<OP>(v2, inc);
+          ih += h2;
+        }
+      }
+      if (lane == 31) {
+        s_wkey[warp] = xr;
+        s_wval[warp] = inc;
+        s_whits[warp] = ih;
+      }
+      int ek = __shfl_up_sync(kFull, xr, 1);
+      T ev = shfl_up(inc, 1);
+      int32_t eh = __shfl_up_sync(kFull, ih, 1);
+      __syncthreads();
+      int pk = 0;
+      T pv = s_cval;
+      int32_t ph = s_chits;
+      for (int w = 0; w < warp; ++w) {
+        if (pk == s_wkey[w]) {
+          pv = sr_add<OP>(pv, s_wval[w]);
+          ph += s_whits[w];
+        } else {
+          pv = s_wval[w];
+          ph = s_whits[w];
+        }
+        pk = s_wkey[w];
+      }
+      if (lane == 0) {
+        ek = pk;
+        ev = pv;
+        eh = ph;
+      } else if (pk == ek) {
+        ev = sr_add<OP>(pv, ev);
+        eh += ph;
+      }
+      // (ek, ev, eh): the carry into this thread, whose first row is xr0
+      if (ended) {
+        s_fold[xr0] = ek == xr0 ? sr_add<OP>(ev, first) : first;
+        s_supp[xr0] = (ek == xr0 ? eh : 0) + first_hits;
+      }
+      __syncthreads();
+      if (tid == kThreads - 1) {  // the next tile's carry: row xe
+        s_cval = pk == xr ? sr_add<OP>(pv, inc) : inc;
+        s_chits = pk == xr ? ph + ih : ih;
+      }
+      for (int r = tid; r < rows; r += kThreads) {
+        folded[xs + r] = s_fold[r];
+        supp[xs + r] = s_supp[r];
+      }
+      __syncthreads();
+    }
+  }
+  if (tid == 0) {
+    carry_row[blockIdx.x] = (int32_t)x1;
+    carry_val[blockIdx.x] = s_cval;
+    carry_hits[blockIdx.x] = s_chits;
+  }
+}
+
+// A warp for each block b >= 1: if b completed row r = x0(b), the row gets
+// the carries of the blocks before b for r (a hub's run spans many), the
+// lanes striding over the run and a fixed butterfly adding their parts.
+template <typename T, int OP>
+__global__ void fold_carry_kernel(const int32_t* __restrict__ carry_row,
+                                  const T* __restrict__ carry_val,
+                                  const int32_t* __restrict__ carry_hits,
+                                  int blocks, int32_t cap_in, T zero,
+                                  T* __restrict__ folded,
+                                  int32_t* __restrict__ supp) {
+  const int b = (int)((blockIdx.x * blockDim.x + threadIdx.x) / 32) + 1;
+  const int lane = threadIdx.x & 31;
+  if (b >= blocks) return;  // uniform across the warp
+  const int32_t r = carry_row[b - 1];        // x1 of block b - 1 = x0 of b
+  if (r >= cap_in || carry_row[b] == r) return;  // b completed no row
+  T sum = zero;
   int32_t hits = 0;
-  for (int32_t i = lane; i < c; i += 32) {
-    int32_t p0 = base + i;
-    int32_t v = __ldg(seed + clamp_i32(p0, 0, n0 > 0 ? n0 - 1 : 0));
-    bool keep = true;
-    T contrib = one;
-    if (anns.p[0] != nullptr) {
-      const T* a = static_cast<const T*>(anns.p[0]);
-      contrib = sr_mul(op, contrib, a[clamp_i32(p0, 0, anns.n[0] - 1)]);
+  for (int top = b - 1;; top -= 32) {        // carries top, top - 1, ...
+    const int k = top - lane;
+    const bool in_run = k >= 0 && carry_row[k] == r;
+    if (in_run) {
+      sum = sr_add<OP>(sum, carry_val[k]);
+      hits += carry_hits[k];
     }
-    for (int k = 0; k < probes.count; ++k) {
-      const FillProbe pr = probes.p[k];
-      int32_t plo = __ldg(pr.lo + row);
-      int32_t phi = __ldg(pr.hi + row);
-      int32_t end = phi;
-      while (plo < phi) {
-        int32_t mid = plo + ((phi - plo) >> 1);
-        if (__ldg(pr.vals + clamp_i32(mid, 0, pr.n - 1)) < v) plo = mid + 1;
-        else phi = mid;
-      }
-      keep = keep && pr.n > 0 && plo < end &&
-             __ldg(pr.vals + clamp_i32(plo, 0, pr.n - 1)) == v;
-      if (anns.p[k + 1] != nullptr) {
-        const T* a = static_cast<const T*>(anns.p[k + 1]);
-        contrib = sr_mul(op, contrib,
-                         a[clamp_i32(plo, 0, anns.n[k + 1] - 1)]);
-      }
-    }
-    if (keep) {
-      acc = sr_add(op, acc, contrib);
-      hits += 1;
-    }
+    if (__ballot_sync(kFull, in_run) != kFull) break;
   }
   for (int o = 16; o > 0; o >>= 1) {
-    acc = sr_add(op, acc, shfl_down(acc, o));
-    hits += __shfl_down_sync(0xffffffffu, hits, o);
+    sum = sr_add<OP>(sum, shfl_xor(sum, o));
+    hits += __shfl_xor_sync(kFull, hits, o);
   }
-  if (lane == 0) {
-    folded[row] = acc;
-    supp[row] = hits;
+  if (lane == 0 && hits > 0) {
+    folded[r] = sr_add<OP>(folded[r], sum);
+    supp[r] += hits;
   }
 }
 
-template <typename T>
-static int launch_fold(const int32_t* lo0, const int32_t* cnt, int32_t cap_in,
-                       const int32_t* seed, int32_t n0,
-                       const FillProbes* probes, const FoldAnns* anns,
-                       int32_t op, T zero, T one, T* folded, int32_t* supp,
-                       cudaStream_t stream) {
-  if (cap_in <= 0) return 0;
-  if (probes->count < 0 || probes->count > FF_MAX_PROBES || op < 0 || op > 3)
-    return (int)cudaErrorInvalidValue;
-  const int threads = 256;  // 8 rows a block
-  const int64_t blocks = ((int64_t)cap_in * 32 + threads - 1) / threads;
-  frontier_fold_kernel<T><<<(unsigned int)blocks, threads, 0, stream>>>(
-      lo0, cnt, cap_in, seed, n0, *probes, *anns, op, zero, one, folded,
-      supp);
+template <typename T, int OP, int NP>
+static int launch(const int32_t* lo0, const int32_t* offs,
+                  const int32_t* total_c, int32_t cap_in,
+                  const int32_t* seed, int32_t n0, const FillProbes* probes,
+                  const FoldAnns* anns, T zero, T one, T* folded,
+                  int32_t* supp, void* scratch, cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fold_kernel<T, OP, NP>, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int fit = sms * per_sm * kWaves;
+  const int blocks = fit < 1 ? 1 : (fit < kMaxBlocks ? fit : kMaxBlocks);
+  int32_t* carry_row = static_cast<int32_t*>(scratch);
+  T* carry_val = reinterpret_cast<T*>(carry_row + kMaxBlocks);
+  int32_t* carry_hits = carry_row + 2 * kMaxBlocks;
+  fold_kernel<T, OP, NP><<<blocks, kThreads, 0, stream>>>(
+      lo0, offs, total_c, cap_in, seed, n0, *probes, *anns, zero, one,
+      folded, supp, carry_row, carry_val, carry_hits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || blocks < 2) return (int)err;
+  const int threads = 256;  // 8 warps, one for each block b >= 1
+  fold_carry_kernel<T, OP><<<(blocks - 1 + 7) / 8, threads, 0, stream>>>(
+      carry_row, carry_val, carry_hits, blocks, cap_in, zero, folded, supp);
   return (int)cudaGetLastError();
 }
 
-extern "C" int frontier_fold_i32(const int32_t* lo0, const int32_t* cnt,
-                                 int32_t cap_in, const int32_t* seed,
-                                 int32_t n0, const FillProbes* probes,
+template <typename T, int OP>
+static int launch_op(const int32_t* lo0, const int32_t* offs,
+                     const int32_t* total_c, int32_t cap_in,
+                     const int32_t* seed, int32_t n0,
+                     const FillProbes* probes, const FoldAnns* anns, T zero,
+                     T one, T* folded, int32_t* supp, void* scratch,
+                     cudaStream_t stream) {
+  switch (probes->count) {
+    case 0:
+      return launch<T, OP, 0>(lo0, offs, total_c, cap_in, seed, n0, probes,
+                              anns, zero, one, folded, supp, scratch, stream);
+    case 1:
+      return launch<T, OP, 1>(lo0, offs, total_c, cap_in, seed, n0, probes,
+                              anns, zero, one, folded, supp, scratch, stream);
+    case 2:
+      return launch<T, OP, 2>(lo0, offs, total_c, cap_in, seed, n0, probes,
+                              anns, zero, one, folded, supp, scratch, stream);
+    default:
+      return launch<T, OP, FF_MAX_PROBES>(lo0, offs, total_c, cap_in, seed,
+                                          n0, probes, anns, zero, one,
+                                          folded, supp, scratch, stream);
+  }
+}
+
+static bool bad_args(int32_t cap_in, const FillProbes* probes) {
+  return cap_in < 1 || probes->count < 0 || probes->count > FF_MAX_PROBES;
+}
+
+}  // namespace fold
+
+// Bytes of the carries' scratch a fold takes: a row, a value and a count
+// for each of at most kMaxBlocks blocks.
+extern "C" int64_t frontier_fold_scratch_bytes() {
+  return 3 * 4 * (int64_t)fold::kMaxBlocks;
+}
+
+// lo0, offs: [cap_in] (each row's seed segment start and exclusive-scan
+// candidate offset); total_c: the candidate total, on the device; seed:
+// [n0]; scratch: frontier_fold_scratch_bytes(); folded, supp: [cap_in],
+// every row written.  op selects the float semiring (0 sum, 1 min_plus,
+// 2 max_min).  Returns the first launch error, or 0.
+extern "C" int frontier_fold_i32(const int32_t* lo0, const int32_t* offs,
+                                 const int32_t* total_c, int32_t cap_in,
+                                 const int32_t* seed, int32_t n0,
+                                 const FillProbes* probes,
                                  const FoldAnns* anns, int32_t op,
                                  int32_t zero, int32_t one, int32_t* folded,
-                                 int32_t* supp, cudaStream_t stream) {
-  return launch_fold<int32_t>(lo0, cnt, cap_in, seed, n0, probes, anns, op,
-                              zero, one, folded, supp, stream);
+                                 int32_t* supp, void* scratch,
+                                 cudaStream_t stream) {
+  if (fold::bad_args(cap_in, probes) || op != 0)
+    return (int)cudaErrorInvalidValue;
+  return fold::launch_op<int32_t, 0>(lo0, offs, total_c, cap_in, seed, n0,
+                                     probes, anns, zero, one, folded, supp,
+                                     scratch, stream);
 }
 
-extern "C" int frontier_fold_f32(const int32_t* lo0, const int32_t* cnt,
-                                 int32_t cap_in, const int32_t* seed,
-                                 int32_t n0, const FillProbes* probes,
+extern "C" int frontier_fold_f32(const int32_t* lo0, const int32_t* offs,
+                                 const int32_t* total_c, int32_t cap_in,
+                                 const int32_t* seed, int32_t n0,
+                                 const FillProbes* probes,
                                  const FoldAnns* anns, int32_t op, float zero,
                                  float one, float* folded, int32_t* supp,
-                                 cudaStream_t stream) {
-  return launch_fold<float>(lo0, cnt, cap_in, seed, n0, probes, anns, op,
-                            zero, one, folded, supp, stream);
+                                 void* scratch, cudaStream_t stream) {
+  if (fold::bad_args(cap_in, probes)) return (int)cudaErrorInvalidValue;
+  switch (op) {
+    case 0:
+      return fold::launch_op<float, 0>(lo0, offs, total_c, cap_in, seed, n0,
+                                       probes, anns, zero, one, folded, supp,
+                                       scratch, stream);
+    case 1:
+      return fold::launch_op<float, 1>(lo0, offs, total_c, cap_in, seed, n0,
+                                       probes, anns, zero, one, folded, supp,
+                                       scratch, stream);
+    case 2:
+      return fold::launch_op<float, 2>(lo0, offs, total_c, cap_in, seed, n0,
+                                       probes, anns, zero, one, folded, supp,
+                                       scratch, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-extern "C" int frontier_fold_u8(const int32_t* lo0, const int32_t* cnt,
-                                int32_t cap_in, const int32_t* seed,
-                                int32_t n0, const FillProbes* probes,
+extern "C" int frontier_fold_u8(const int32_t* lo0, const int32_t* offs,
+                                const int32_t* total_c, int32_t cap_in,
+                                const int32_t* seed, int32_t n0,
+                                const FillProbes* probes,
                                 const FoldAnns* anns, int32_t op,
                                 uint8_t zero, uint8_t one, uint8_t* folded,
-                                int32_t* supp, cudaStream_t stream) {
-  return launch_fold<uint8_t>(lo0, cnt, cap_in, seed, n0, probes, anns, op,
-                              zero, one, folded, supp, stream);
+                                int32_t* supp, void* scratch,
+                                cudaStream_t stream) {
+  if (fold::bad_args(cap_in, probes) || op != 3)
+    return (int)cudaErrorInvalidValue;
+  return fold::launch_op<uint8_t, 3>(lo0, offs, total_c, cap_in, seed, n0,
+                                     probes, anns, zero, one, folded, supp,
+                                     scratch, stream);
 }
 
 extern "C" int frontier_fill(const int32_t* total_c, const int32_t* offs,

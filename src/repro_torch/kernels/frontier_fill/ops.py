@@ -13,10 +13,14 @@ Returns ``(vals, row, p0, keep, poss)``: int32 candidate values, source
 rows and absolute seed positions, the bool keep mask (liveness AND every
 probe's membership), and each probe atom's int32 absolute positions.
 
-``fold(lo0, cnt, seed, probes, leaf_anns, sr)`` is the device terminal
-fold: every row's ``cnt`` candidates from ``lo0`` are probed the same way
-and their semiring contributions reduced onto the row in ONE launch (a
-warp per row), with no output slots and so no size to know.
+``fold(lo0, offs, total, seed, probes, leaf_anns, sr)`` is the device
+terminal fold: the ``total`` candidates, row ``r``'s from ``lo0[r]`` on
+and numbered from ``offs[r]``, are probed the same way and their semiring
+contributions reduced onto their rows: a merge-path kernel over the row
+ends and the candidates and a small fix-up for the rows that cross its
+blocks, counted as one launch.  ``total`` stays on the device and the
+grid and scratch come from the card, so the call reads nothing on the
+host.
 """
 from __future__ import annotations
 
@@ -127,22 +131,28 @@ def fill(total_c: torch.Tensor, offs: torch.Tensor, lo0: torch.Tensor,
 
 
 def _fold_lib(suffix: str, scalar):
-    fn = getattr(common.library(NAME), f"frontier_fold_{suffix}")
+    lib = common.library(NAME)
+    fn = getattr(lib, f"frontier_fold_{suffix}")
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, ctypes.c_int32, p, ctypes.c_int32,
+        fn.argtypes = [p, p, p, ctypes.c_int32, p, ctypes.c_int32,
                        ctypes.POINTER(_Probes), ctypes.POINTER(_FoldAnns),
-                       ctypes.c_int32, scalar, scalar, p, p, p]
+                       ctypes.c_int32, scalar, scalar, p, p, p, p]
         fn.restype = ctypes.c_int
-    return fn
+        lib.frontier_fold_scratch_bytes.restype = ctypes.c_int64
+    return fn, lib.frontier_fold_scratch_bytes
 
 
-def fold(lo0: torch.Tensor, cnt: torch.Tensor, seed: torch.Tensor,
-         probes: Sequence[Tuple], leaf_anns: Sequence, sr):
+def fold(lo0: torch.Tensor, offs: torch.Tensor, total: torch.Tensor,
+         seed: torch.Tensor, probes: Sequence[Tuple], leaf_anns: Sequence,
+         sr):
     """Terminal fold of every row's candidates; see the module docstring.
 
-    lo0, cnt : int32 [cap_in] — each row's (clipped) seed segment start
-        and candidate count (0 for dead rows)
+    lo0, offs : int32 [cap_in] — each row's (clipped) seed segment start
+        and the exclusive scan of the rows' candidate counts (0 for dead
+        rows), so row ``r`` holds ``offs[r + 1] - offs[r]`` candidates
+        (the last row ``total - offs[-1]``)
+    total : int32 scalar (0-d) — the candidate count, read on the device
     seed : int32 [n0]; probes as for :func:`fill`
     leaf_anns : one entry per constraining atom (seed first): None or the
         atom's leaf annotation vector in ``sr.dtype``
@@ -152,11 +162,12 @@ def fold(lo0: torch.Tensor, cnt: torch.Tensor, seed: torch.Tensor,
     dev = lo0.device
     cap_in = int(lo0.shape[0])
     common.check_tensor(lo0, "lo0", torch.int32, dev)
-    common.check_tensor(cnt, "cnt", torch.int32, dev)
+    common.check_tensor(offs, "offs", torch.int32, dev)
+    common.check_tensor(total, "total", torch.int32, dev, ndim=0)
     common.check_tensor(seed, "seed", torch.int32, dev)
-    if cap_in < 1 or cnt.shape[0] != cap_in:
-        raise ValueError(f"lo0/cnt must share a length >= 1, got "
-                         f"{cap_in} and {cnt.shape[0]}")
+    if cap_in < 1 or offs.shape[0] != cap_in:
+        raise ValueError(f"lo0/offs must share a length >= 1, got "
+                         f"{cap_in} and {offs.shape[0]}")
     _check_probes(probes, cap_in, dev)
     if len(leaf_anns) != len(probes) + 1:
         raise ValueError("one leaf-annotation entry per constraining atom")
@@ -166,20 +177,22 @@ def fold(lo0: torch.Tensor, cnt: torch.Tensor, seed: torch.Tensor,
     if sr.name not in _FOLD_OPS:
         raise ValueError(f"no fold kernel for semiring {sr.name!r}")
     if not common.kernel_device(lo0, FOLD_NAME):
-        return fold_ref(lo0, cnt, seed, probes, leaf_anns, sr)
+        return fold_ref(lo0, offs, total, seed, probes, leaf_anns, sr)
 
     suffix, scalar, op = _FOLD_OPS[sr.name]
+    fn, scratch_bytes = _fold_lib(suffix, scalar)
     folded = torch.empty(cap_in, dtype=sr.dtype, device=dev)
     supp = torch.empty(cap_in, dtype=torch.int32, device=dev)
+    scratch = torch.empty(scratch_bytes(), dtype=torch.uint8, device=dev)
     anns = _FoldAnns()
     for k, la in enumerate(leaf_anns):
         if la is not None:
             anns.p[k] = la.data_ptr()
             anns.n[k] = int(la.shape[0])
-    err = _fold_lib(suffix, scalar)(
-        lo0.data_ptr(), cnt.data_ptr(), cap_in, seed.data_ptr(),
-        int(seed.shape[0]), ctypes.byref(_probes_desc(probes)),
-        ctypes.byref(anns), op, scalar(sr.zero), scalar(sr.one),
-        folded.data_ptr(), supp.data_ptr(), common.stream_ptr(dev))
+    err = fn(lo0.data_ptr(), offs.data_ptr(), total.data_ptr(), cap_in,
+             seed.data_ptr(), int(seed.shape[0]),
+             ctypes.byref(_probes_desc(probes)), ctypes.byref(anns), op,
+             scalar(sr.zero), scalar(sr.one), folded.data_ptr(),
+             supp.data_ptr(), scratch.data_ptr(), common.stream_ptr(dev))
     common.check_launch(err, FOLD_NAME)
     return folded, supp

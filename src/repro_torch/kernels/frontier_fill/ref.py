@@ -8,11 +8,13 @@ of ``core.intersect.segment_searchsorted``.  Slots at or past ``total_c``
 come out masked: keep False, every other output 0.  All arithmetic is
 int32, so the kernel must match this bit for bit.
 
-``fold_ref``: the same expansion over every row's candidates, each kept
-candidate's semiring contribution (one times the leaf annotations at its
-positions) reduced onto its row, plus the per-row support count.  Integer,
-min/max and boolean folds are order-free and bit-exact; a float sum may
-differ from the kernel's reduction order in the last place.
+``fold_ref``: the same expansion over every row's candidates (row ``r``
+holds ``offs[r + 1] - offs[r]`` of them, the last row ``total -
+offs[-1]``), each kept candidate's semiring contribution (one times the
+leaf annotations at its positions) reduced onto its row, plus the per-row
+support count.  Integer, min/max and boolean folds are order-free and
+bit-exact; a float sum may differ from the kernel's reduction order in
+the last place.
 """
 from __future__ import annotations
 
@@ -49,12 +51,14 @@ def fill_ref(total_c: torch.Tensor, offs: torch.Tensor, lo0: torch.Tensor,
     return mask(vals), mask(row), mask(p0), keep, tuple(poss)
 
 
-def fold_ref(lo0: torch.Tensor, cnt: torch.Tensor, seed: torch.Tensor,
-             probes: Sequence[Tuple], leaf_anns: Sequence, sr):
+def fold_ref(lo0: torch.Tensor, offs: torch.Tensor, total: torch.Tensor,
+             seed: torch.Tensor, probes: Sequence[Tuple], leaf_anns: Sequence,
+             sr):
     dev = lo0.device
     cap_in = int(lo0.shape[0])
     n0 = int(seed.shape[0])
-    counts = cnt.to(torch.int64)
+    ends = torch.cat([offs[1:], total.reshape(1)]).to(torch.int64)
+    counts = ends - offs.to(torch.int64)
     total = int(counts.sum())
     row = torch.repeat_interleave(
         torch.arange(cap_in, dtype=torch.int64, device=dev), counts,

@@ -104,8 +104,96 @@ def test_fill_kernel_matches_plain(dev, seed):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("srname", ["count", "sum_f32", "min_plus",
-                                    "boolean"])
+FOLD_SEMIRINGS = ["count", "sum_f32", "min_plus", "max_min", "boolean"]
+
+
+def _fold_args(dev, sr, lo0, cnt, seed_vals, probes, anns):
+    """``fold``'s arguments on the card: offsets and the device-side total
+    from the per-row counts, levels and annotations in their dtypes."""
+    cnt = np.asarray(cnt, dtype=np.int64)
+    total = torch.tensor(int(cnt.sum()), dtype=torch.int32, device=dev)
+    tanns = []
+    for a in anns:
+        if a is not None and sr.name == "boolean":
+            a = a > 0.5
+        tanns.append(None if a is None else
+                     torch.as_tensor(a, device=dev).to(sr.dtype))
+    return (t32(lo0, dev), t32(np.cumsum(cnt) - cnt, dev), total,
+            t32(seed_vals, dev),
+            tuple((t32(v, dev), t32(lo, dev), t32(hi, dev))
+                  for v, lo, hi in probes), tuple(tanns), sr)
+
+
+def _plain_f64(args):
+    """The plain version's sums taken in float64 (a float sum is held
+    against these: the kernel and the plain version add in other
+    orders)."""
+    import dataclasses
+
+    from repro_torch.core import semiring as S
+
+    sr = args[-1]
+    f64 = dataclasses.replace(sr, dtype=torch.float64,
+                              segment_reduce=S._segment("sum", torch.float64,
+                                                        0.0))
+    anns = tuple(None if a is None else a.double() for a in args[5])
+    return fold_ref(*args[:5], anns, f64)
+
+
+def _check_fold(args):
+    """One launch counted; support bit for bit and the fold bit for bit
+    (count, min, max, boolean) or, for a float sum, within 1e-5 of the
+    plain version's sums in float64; two launches bit-identical."""
+    sr = args[-1]
+    before = common.LAUNCHES["frontier_fold"]
+    folded, supp = fill_ops.fold(*args)
+    assert common.LAUNCHES["frontier_fold"] == before + 1
+    want, want_supp = fold_ref(*args)
+    assert folded.dtype == sr.dtype and supp.dtype == torch.int32
+    assert torch.equal(supp, want_supp)
+    if sr.name == "sum_f32":
+        exact, _ = _plain_f64(args)
+        torch.testing.assert_close(folded.double(), exact, rtol=1e-5,
+                                   atol=0)
+    else:
+        assert torch.equal(folded, want)
+    again, again_supp = fill_ops.fold(*args)
+    assert torch.equal(again, folded) and torch.equal(again_supp, supp)
+    return folded, supp
+
+
+def _random_fold(dev, sr, seed, cap_in, n0, max_cnt, n_probes, live=None,
+                 annotated=(0, -1), hub=None):
+    """Seeded fold inputs: sorted levels, rows of up to ``max_cnt``
+    candidates (only the ``live`` ones, if given), probe segments inside
+    their levels, leaf annotations in [0, 3) on the ``annotated`` atoms
+    (whole numbers for count), and ``hub = (row, start, count)`` one long
+    row."""
+    r = np.random.default_rng(seed)
+    seed_vals = np.sort(r.choice(4 * n0, size=n0, replace=False))
+    lo0 = r.integers(0, n0, cap_in)
+    cnt = np.minimum(r.integers(0, max_cnt + 1, cap_in), n0 - lo0)
+    if live is not None:
+        cnt = np.where(live, cnt, 0)
+    if hub is not None:
+        lo0[hub[0]], cnt[hub[0]] = hub[1], hub[2]
+    probes = []
+    for _ in range(n_probes):
+        nk = int(r.integers(n0 // 2, 2 * n0))
+        vk = np.sort(r.choice(4 * n0, size=nk, replace=False))
+        lo = r.integers(0, nk, cap_in)
+        probes.append((vk, lo, np.minimum(lo + r.integers(1, nk, cap_in),
+                                          nk)))
+    sizes = [n0] + [len(p[0]) for p in probes]
+    anns = [None] * len(sizes)
+    for k in annotated:
+        if -len(sizes) <= k < len(sizes):
+            a = r.random(sizes[k]).astype(np.float32) * 3
+            anns[k] = np.floor(a) if sr.name == "count" else a
+    return _fold_args(dev, sr, lo0, cnt, seed_vals, probes, anns)
+
+
+@pytest.mark.parametrize("srname", FOLD_SEMIRINGS)
 def test_fold_kernel_matches_plain(dev, srname):
     from repro_torch.core import semiring as S
 
@@ -119,21 +207,101 @@ def test_fold_kernel_matches_plain(dev, srname):
     for _ in range(2):
         vk = np.sort(r.choice(30000, size=6000, replace=False))
         lo = r.integers(0, 3000, cap_in)
-        probes.append((t32(vk, dev), t32(lo, dev),
-                       t32(lo + r.integers(0, 3000, cap_in), dev)))
-        anns.append(torch.as_tensor(r.integers(0, 3, 6000), device=dev)
-                    .to(sr.dtype))
-    args = (t32(lo0, dev), t32(cnt, dev), t32(seed_vals, dev),
-            tuple(probes), tuple(anns), sr)
-    before = common.LAUNCHES["frontier_fold"]
-    folded, supp = fill_ops.fold(*args)
-    assert common.LAUNCHES["frontier_fold"] == before + 1
-    want, want_supp = fold_ref(*args)
-    assert torch.equal(supp, want_supp)
-    if srname == "sum_f32":   # reduction order differs: float tolerance
-        torch.testing.assert_close(folded, want, rtol=1e-6, atol=0)
-    else:
-        assert torch.equal(folded, want)
+        probes.append((vk, lo, lo + r.integers(0, 3000, cap_in)))
+        anns.append(r.integers(0, 3, 6000))
+    _check_fold(_fold_args(dev, sr, lo0, cnt, seed_vals, probes, anns))
+
+
+@pytest.mark.parametrize("srname", FOLD_SEMIRINGS)
+def test_fold_hub_row_spans_blocks(dev, srname):
+    """One row of 1,200,000 candidates (longer than a block's share of the
+    merge) between short rows."""
+    from repro_torch.core import semiring as S
+
+    _, supp = _check_fold(_random_fold(dev, S.BY_NAME[srname], 11, 3000,
+                                       1_300_000, 40, 2,
+                                       hub=(1500, 50_000, 1_200_000)))
+    assert int(supp[1500]) > 0
+
+
+@pytest.mark.parametrize("srname", FOLD_SEMIRINGS)
+def test_fold_without_candidates(dev, srname):
+    """total = 0 over a capacity of 2^21 rows: every row the zero, support
+    0."""
+    from repro_torch.core import semiring as S
+
+    sr = S.BY_NAME[srname]
+    cap_in = 1 << 21
+    args = _random_fold(dev, sr, 5, cap_in, 5000, 10, 2,
+                        live=np.zeros(cap_in, dtype=bool))
+    folded, supp = _check_fold(args)
+    assert int(args[2]) == 0 and int(supp.abs().sum()) == 0
+    assert torch.equal(folded, torch.full_like(folded, sr.zero))
+
+
+@pytest.mark.parametrize("srname", FOLD_SEMIRINGS)
+def test_fold_live_rows_at_the_front(dev, srname):
+    """5% live rows at the front of a 2^21-row capacity, as the planner's
+    estimate leaves them."""
+    from repro_torch.core import semiring as S
+
+    cap_in = 1 << 21
+    live = np.arange(cap_in) < cap_in // 20
+    _check_fold(_random_fold(dev, S.BY_NAME[srname], 7, cap_in, 20_000, 60,
+                             2, live=live))
+
+
+@pytest.mark.parametrize("srname", FOLD_SEMIRINGS)
+def test_fold_empty_runs_around_block_boundaries(dev, srname):
+    """Runs of 1,000 empty rows between runs of live ones, over enough
+    items that block boundaries fall inside both kinds of run."""
+    from repro_torch.core import semiring as S
+
+    cap_in = 400_000
+    live = (np.arange(cap_in) // 1000) % 2 == 1
+    _check_fold(_random_fold(dev, S.BY_NAME[srname], 9, cap_in, 3000, 12, 1,
+                             live=live))
+
+
+@pytest.mark.parametrize("srname", FOLD_SEMIRINGS)
+@pytest.mark.parametrize("n_probes", [0, fill_ops.MAX_PROBES])
+def test_fold_probe_counts(dev, srname, n_probes):
+    """No probe with the seed's leaf annotation, and the most probes a
+    fold takes, each annotated."""
+    from repro_torch.core import semiring as S
+
+    _check_fold(_random_fold(dev, S.BY_NAME[srname], 13 + n_probes, 5000,
+                             4000, 30, n_probes,
+                             annotated=(0,) if n_probes == 0 else
+                             tuple(range(1, n_probes + 1))))
+
+
+def test_fold_float_sum_is_deterministic(dev):
+    """sum_f32 over non-integer annotations: two launches give the same
+    bits, within 1e-5 of the sums in float64."""
+    from repro_torch.core import semiring as S
+
+    args = _random_fold(dev, S.SUM_F32, 17, 50_000, 100_000, 300, 2)
+    assert not torch.equal(args[5][0], args[5][0].floor())
+    folded, _ = _check_fold(args)
+    for _ in range(3):
+        assert torch.equal(fill_ops.fold(*args)[0], folded)
+
+
+def test_fold_makes_no_host_sync(dev):
+    """The call reads the total on the card and sizes its grid and scratch
+    from the card: no read of a device value."""
+    from repro_torch.core import semiring as S
+
+    args = _random_fold(dev, S.COUNT, 19, 100_000, 20_000, 50, 2)
+    want = fill_ops.fold(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fill_ops.fold(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_cuda_tensor_never_takes_the_plain_version(dev):

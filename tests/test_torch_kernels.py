@@ -280,8 +280,10 @@ def test_fold_plain_version_matches_row_loop(seed, srname):
     want, want_supp = _fold_naive(lo0, cnt, seed_vals, probes, anns, *ops)
     tanns = tuple(None if a is None else torch.as_tensor(a).to(sr.dtype)
                   for a in anns)
+    offs = np.cumsum(cnt) - cnt
     folded, supp = fill_ops.fold(
-        t32(lo0), t32(cnt), t32(seed_vals),
+        t32(lo0), t32(offs), torch.tensor(int(cnt.sum()), dtype=torch.int32),
+        t32(seed_vals),
         tuple((t32(v), t32(lo), t32(hi)) for v, lo, hi in probes), tanns, sr)
     np.testing.assert_array_equal(supp.numpy(), want_supp)
     np.testing.assert_array_equal(folded.numpy(),

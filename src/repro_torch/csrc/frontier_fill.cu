@@ -132,16 +132,18 @@ __global__ void frontier_fill_kernel(
 //      of offs); then a thread each finds the block's tile boundaries
 //      inside them.  A tile stages its rows' ends in shared memory.
 //   3. The probes, warp by warp over 32 consecutive candidates at a time:
-//      a lane finds its candidate's row among the staged ends, the seed
-//      values are read coalesced, and the lanes of one row search the same
-//      segment in lockstep.  A row's candidates ascend, so their lower
-//      bounds do too: a lane's search starts where the warp's previous 32
-//      left its row, not at the segment's start.  The searches of all
-//      probes advance together, their loads in flight at once.  Every
-//      position equals the reference's lockstep lower bound, clip rules
-//      included, because the segment is sorted (a trie level); a
-//      candidate below the last of the previous 32 (never on a sorted
-//      seed segment) searches the whole segment.
+//      a lane finds its candidate's row among the staged ends (from its
+//      previous row on, whose data it keeps), the seed values are read
+//      coalesced, and the lanes of one row search the same segment.  A
+//      row's candidates ascend, so their lower bounds do too: a lane's
+//      search starts where the warp's previous 32 left its row, not at
+//      the segment's start.  The searches of all probes advance together
+//      in branch-free halving steps, kept to a few instructions: on the
+//      H100 fewer instructions a candidate shortened this phase, more
+//      warps in flight did not.  Every position equals the reference's
+//      lockstep lower bound, clip rules included, because the segment is
+//      sorted (a trie level); a candidate below the last of the previous
+//      32 (never on a sorted seed segment) searches the whole segment.
 //   4. Reduction without atomics.  Each thread takes kItems consecutive
 //      items of the tile's merge and folds their contributions in order;
 //      a row it ends after its first one goes straight to shared memory;
@@ -177,8 +179,9 @@ constexpr int kTile = kThreads * kItems;
 // The most blocks a launch takes: the carries' scratch holds one slot each.
 constexpr int kMaxBlocks = 4096;
 // Blocks a launch takes for each that fits on an SM at once: more, smaller
-// shares even out the blocks whose items cost more than others'.
-constexpr int kWaves = 4;
+// shares even out the blocks whose items cost more than others' (on the
+// H100 the kMaxBlocks cap binds first).
+constexpr int kWaves = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Semiring ops by code: 0 (+, *) count/sum, 1 (min, +) min_plus,
@@ -354,9 +357,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
       // candidates, 32 consecutive ones a round (their seed values read
       // coalesced, and a row's lanes searching the same segment).  A row's
       // positions ascend with its candidates, so a lane's search in each
-      // probe segment starts where the warp's previous round left its row;
-      // the searches of all probes advance in lockstep, their loads
-      // overlapping
+      // probe segment starts where the warp's previous round left its row
       {
         constexpr int NPA = NP > 0 ? NP : 1;
         const int per_warp = ((ncand + kWarps - 1) / kWarps + 31) & ~31;
@@ -364,22 +365,35 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
         const int c_end = imin(c_begin + per_warp, ncand);
         int prev_row = -1;
         int32_t prev_v = 0, prev_pos[NPA] = {};
+        // this lane's last row and that row's data, kept across rounds
+        int my_row = -1;
+        int32_t my_base = 0, plo[NPA] = {}, phi[NPA] = {};
         for (int cb = c_begin; cb < c_end; cb += 32) {
           const int c = cb + lane;
           const bool act = c < c_end;
           // the candidate's row: the least r with r == rows or s_end[r] > c,
-          // no earlier than the previous round's
-          int r = -1;
-          int32_t p0 = 0;
-          if (act) {
-            int rlo = imax(prev_row, 0), rhi = rows;
+          // no earlier than this lane's last
+          int r = my_row;
+          if (act && (r < 0 || (r < rows && s_end[r] <= c))) {
+            int rlo = r + 1, rhi = rows;
             while (rlo < rhi) {
               const int mid = (rlo + rhi) >> 1;
               if (s_end[mid] > c) rhi = mid; else rlo = mid + 1;
             }
             r = rlo;
-            p0 = __ldg(lo0 + xs + r) + (ys + c - __ldg(offs + xs + r));
           }
+          if (act && r != my_row) {
+            my_row = r;
+            my_base = __ldg(lo0 + xs + r) - __ldg(offs + xs + r);
+#pragma unroll
+            for (int q = 0; q < NP; ++q) {
+              if (q < np) {
+                plo[q] = __ldg(probes.p[q].lo + xs + r);
+                phi[q] = __ldg(probes.p[q].hi + xs + r);
+              }
+            }
+          }
+          const int32_t p0 = my_base + ys + c;
           const int32_t v =
               act ? __ldg(seed + clamp_i32(p0, 0, n0 > 0 ? n0 - 1 : 0))
                   : INT32_MAX;
@@ -390,37 +404,30 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
           // a candidate after the last of the previous round in its row has
           // its positions no earlier than that one's
           const bool carried = act && r == prev_row && v >= prev_v;
-          const int32_t row = xs + (act ? r : 0);
-          int32_t pos[NPA], phi[NPA], len[NPA];
+          // the lower bounds in every probe segment, searched in lockstep:
+          // [pos, pos + len) holds the bound, or it is pos + len
+          int32_t pos[NPA], len[NPA];
 #pragma unroll
           for (int q = 0; q < NP; ++q) {
             if (q < np) {
-              const int32_t plo = act ? __ldg(probes.p[q].lo + row) : 0;
-              phi[q] = act ? __ldg(probes.p[q].hi + row) : 0;
-              pos[q] = carried ? imax(prev_pos[q], plo) : plo;
+              pos[q] = carried ? imax(prev_pos[q], plo[q]) : plo[q];
               len[q] = act && probes.p[q].n > 0 ? imax(phi[q] - pos[q], 0)
                                                 : 0;
             }
           }
-          for (bool more = NP > 0; more;) {
-            int32_t x[NPA];
+          for (;;) {
+            bool more = false;
 #pragma unroll
-            for (int q = 0; q < NP; ++q)
-              if (q < np && len[q] > 0)
-                x[q] = level_at(probes.p[q].vals, probes.p[q].n,
-                                pos[q] + (len[q] >> 1));
-            more = false;
+            for (int q = 0; q < NP; ++q) more = more || (q < np && len[q] > 1);
+            if (!more) break;
 #pragma unroll
             for (int q = 0; q < NP; ++q) {
-              if (q < np && len[q] > 0) {
+              if (q < np) {
                 const int32_t half = len[q] >> 1;
-                if (x[q] < v) {
-                  pos[q] += half + 1;
-                  len[q] -= half + 1;
-                } else {
-                  len[q] = half;
-                }
-                more = more || len[q] > 0;
+                if (level_at(probes.p[q].vals, probes.p[q].n,
+                             pos[q] + half) < v)
+                  pos[q] += half;
+                len[q] -= half;
               }
             }
           }
@@ -428,9 +435,11 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
 #pragma unroll
           for (int q = 0; q < NP; ++q) {
             if (q < np) {
+              const int32_t* vals = probes.p[q].vals;
               const int32_t n = probes.p[q].n;
+              if (len[q] == 1 && level_at(vals, n, pos[q]) < v) ++pos[q];
               keep = keep && n > 0 && pos[q] < phi[q] &&
-                     level_at(probes.p[q].vals, n, pos[q]) == v;
+                     level_at(vals, n, pos[q]) == v;
               const T* an = static_cast<const T*>(anns.p[q + 1]);
               if (an != nullptr && act)
                 contrib = sr_mul<OP>(

@@ -619,14 +619,142 @@ static int launch(const int32_t* lo0, const int32_t* offs,
   return (int)cudaGetLastError();
 }
 
+// For comparison only: a warp for each row (the design before the merge
+// path) with the descriptors __grid_constant__ and the probe count a
+// template parameter, and a row with no candidate leaving at once.
+template <typename T>
+__device__ __forceinline__ T rt_add(int op, T a, T b) {
+  switch (op) {
+    case 0: return a + b;
+    case 1: return b < a ? b : a;
+    case 2: return b > a ? b : a;
+    default: return (T)(a || b);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T rt_mul(int op, T a, T b) {
+  switch (op) {
+    case 0: return a * b;
+    case 1: return a + b;
+    case 2: return b < a ? b : a;
+    default: return (T)(a && b);
+  }
+}
+
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads) fold_rows_kernel(
+    const int32_t* __restrict__ lo0, const int32_t* __restrict__ offs,
+    const int32_t* __restrict__ total_c, int32_t cap_in,
+    const int32_t* __restrict__ seed, int32_t n0,
+    const __grid_constant__ FillProbes probes,
+    const __grid_constant__ FoldAnns anns, int op, T zero, T one,
+    T* __restrict__ folded, int32_t* __restrict__ supp) {
+  const int64_t w = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= cap_in) return;  // uniform across the warp
+  const int32_t row = (int32_t)w;
+  const int32_t c =
+      row_end(offs, __ldg(total_c), cap_in, row) - __ldg(offs + row);
+  if (c <= 0) {
+    if (lane == 0) {
+      folded[row] = zero;
+      supp[row] = 0;
+    }
+    return;
+  }
+  const int np = NP < FF_MAX_PROBES ? NP : probes.count;
+  const int32_t base = __ldg(lo0 + row);
+  const T* ann0 = static_cast<const T*>(anns.p[0]);
+  T acc = zero;
+  int32_t hits = 0;
+  for (int32_t i = lane; i < c; i += 32) {
+    const int32_t p0 = base + i;
+    const int32_t v = __ldg(seed + clamp_i32(p0, 0, n0 > 0 ? n0 - 1 : 0));
+    bool keep = true;
+    T contrib = one;
+    if (ann0 != nullptr)
+      contrib = rt_mul(op, contrib, ann0[clamp_i32(p0, 0, anns.n[0] - 1)]);
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      if (q < np) {
+        const int32_t* vals = probes.p[q].vals;
+        const int32_t n = probes.p[q].n;
+        int32_t plo = __ldg(probes.p[q].lo + row);
+        int32_t phi = __ldg(probes.p[q].hi + row);
+        const int32_t end = phi;
+        while (plo < phi) {
+          const int32_t mid = plo + ((phi - plo) >> 1);
+          if (level_at(vals, n, mid) < v) plo = mid + 1; else phi = mid;
+        }
+        keep = keep && n > 0 && plo < end && level_at(vals, n, plo) == v;
+        const T* an = static_cast<const T*>(anns.p[q + 1]);
+        if (an != nullptr)
+          contrib = rt_mul(op, contrib,
+                           an[clamp_i32(plo, 0, anns.n[q + 1] - 1)]);
+      }
+    }
+    if (keep) {
+      acc = rt_add(op, acc, contrib);
+      ++hits;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    acc = rt_add(op, acc, shfl_xor(acc, o));
+    hits += __shfl_xor_sync(kFull, hits, o);
+  }
+  if (lane == 0) {
+    folded[row] = acc;
+    supp[row] = hits;
+  }
+}
+
+template <typename T, int NP>
+static int launch_rows(const int32_t* lo0, const int32_t* offs,
+                       const int32_t* total_c, int32_t cap_in,
+                       const int32_t* seed, int32_t n0,
+                       const FillProbes* probes, const FoldAnns* anns, int op,
+                       T zero, T one, T* folded, int32_t* supp,
+                       cudaStream_t stream) {
+  const int64_t blocks = ((int64_t)cap_in * 32 + kThreads - 1) / kThreads;
+  fold_rows_kernel<T, NP><<<(unsigned int)blocks, kThreads, 0, stream>>>(
+      lo0, offs, total_c, cap_in, seed, n0, *probes, *anns, op, zero, one,
+      folded, supp);
+  return (int)cudaGetLastError();
+}
+
+// design: 0 the merge path, 1 its generic probe path, 2 a warp a row,
+// 3 its generic probe path.
 template <typename T, int OP>
 static int launch_op(const int32_t* lo0, const int32_t* offs,
                      const int32_t* total_c, int32_t cap_in,
                      const int32_t* seed, int32_t n0,
                      const FillProbes* probes, const FoldAnns* anns, T zero,
                      T one, T* folded, int32_t* supp, void* scratch,
-                     cudaStream_t stream) {
-  switch (probes->count) {
+                     int design, cudaStream_t stream) {
+  const int np = design & 1 ? FF_MAX_PROBES : probes->count;
+  if (design >= 2) {
+    switch (np) {
+      case 0:
+        return launch_rows<T, 0>(lo0, offs, total_c, cap_in, seed, n0,
+                                 probes, anns, OP, zero, one, folded, supp,
+                                 stream);
+      case 1:
+        return launch_rows<T, 1>(lo0, offs, total_c, cap_in, seed, n0,
+                                 probes, anns, OP, zero, one, folded, supp,
+                                 stream);
+      case 2:
+        return launch_rows<T, 2>(lo0, offs, total_c, cap_in, seed, n0,
+                                 probes, anns, OP, zero, one, folded, supp,
+                                 stream);
+      default:
+        return launch_rows<T, FF_MAX_PROBES>(lo0, offs, total_c, cap_in,
+                                             seed, n0, probes, anns, OP,
+                                             zero, one, folded, supp,
+                                             stream);
+    }
+  }
+  switch (np) {
     case 0:
       return launch<T, OP, 0>(lo0, offs, total_c, cap_in, seed, n0, probes,
                               anns, zero, one, folded, supp, scratch, stream);
@@ -667,12 +795,12 @@ extern "C" int frontier_fold_i32(const int32_t* lo0, const int32_t* offs,
                                  const FoldAnns* anns, int32_t op,
                                  int32_t zero, int32_t one, int32_t* folded,
                                  int32_t* supp, void* scratch,
-                                 cudaStream_t stream) {
+                                 int32_t design, cudaStream_t stream) {
   if (fold::bad_args(cap_in, probes) || op != 0)
     return (int)cudaErrorInvalidValue;
   return fold::launch_op<int32_t, 0>(lo0, offs, total_c, cap_in, seed, n0,
                                      probes, anns, zero, one, folded, supp,
-                                     scratch, stream);
+                                     scratch, design, stream);
 }
 
 extern "C" int frontier_fold_f32(const int32_t* lo0, const int32_t* offs,
@@ -681,21 +809,22 @@ extern "C" int frontier_fold_f32(const int32_t* lo0, const int32_t* offs,
                                  const FillProbes* probes,
                                  const FoldAnns* anns, int32_t op, float zero,
                                  float one, float* folded, int32_t* supp,
-                                 void* scratch, cudaStream_t stream) {
+                                 void* scratch, int32_t design,
+                                 cudaStream_t stream) {
   if (fold::bad_args(cap_in, probes)) return (int)cudaErrorInvalidValue;
   switch (op) {
     case 0:
       return fold::launch_op<float, 0>(lo0, offs, total_c, cap_in, seed, n0,
                                        probes, anns, zero, one, folded, supp,
-                                       scratch, stream);
+                                       scratch, design, stream);
     case 1:
       return fold::launch_op<float, 1>(lo0, offs, total_c, cap_in, seed, n0,
                                        probes, anns, zero, one, folded, supp,
-                                       scratch, stream);
+                                       scratch, design, stream);
     case 2:
       return fold::launch_op<float, 2>(lo0, offs, total_c, cap_in, seed, n0,
                                        probes, anns, zero, one, folded, supp,
-                                       scratch, stream);
+                                       scratch, design, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -708,12 +837,12 @@ extern "C" int frontier_fold_u8(const int32_t* lo0, const int32_t* offs,
                                 const FoldAnns* anns, int32_t op,
                                 uint8_t zero, uint8_t one, uint8_t* folded,
                                 int32_t* supp, void* scratch,
-                                cudaStream_t stream) {
+                                int32_t design, cudaStream_t stream) {
   if (fold::bad_args(cap_in, probes) || op != 3)
     return (int)cudaErrorInvalidValue;
   return fold::launch_op<uint8_t, 3>(lo0, offs, total_c, cap_in, seed, n0,
                                      probes, anns, zero, one, folded, supp,
-                                     scratch, stream);
+                                     scratch, design, stream);
 }
 
 extern "C" int frontier_fill(const int32_t* total_c, const int32_t* offs,

@@ -831,6 +831,8 @@ def fold_cases(args, fill_ops, plain, time_ms, torch):
     live = torch.nonzero(fold_counts(args, torch)).flatten()
     cut = int(live[-1]) + 1 if live.numel() else 1
     cut_probes = tuple((v, lo[:cut], hi[:cut]) for v, lo, hi in probes)
+    hub_probes = tuple((v, lo[:1] * 0, torch.full_like(hi[:1], v.shape[0]))
+                       for v, lo, hi in probes)
     cases = (
         ("(a) the captured call", args),
         ("(b) no candidate", (lo0, torch.zeros_like(offs),
@@ -839,9 +841,12 @@ def fold_cases(args, fill_ops, plain, time_ms, torch):
         ("(c) live prefix", (lo0[:cut], offs[:cut], total, seed, cut_probes,
                              anns, sr)),
         ("(d) live prefix, one probe", (lo0[:cut], offs[:cut], total, seed,
-                                        cut_probes[:1], anns[:2], sr)))
-    designs = ((0, "merge path"), (1, "merge path, generic probes"),
-               (2, "warp a row"), (3, "warp a row, generic probes"))
+                                        cut_probes[:1], anns[:2], sr)),
+        ("(e) one hub row", (lo0[:1] * 0, offs[:1] * 0,
+                             torch.full_like(total, int(seed.shape[0])),
+                             seed, hub_probes, anns, sr)))
+    designs = ((0, "merge path, op a template parameter"),
+               (1, "merge path, op a runtime argument"), (2, "warp a row"))
     for label, case in cases:
         if label.startswith("(d)") and not probes:
             continue

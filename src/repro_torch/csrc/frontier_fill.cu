@@ -125,7 +125,7 @@ __global__ void frontier_fill_kernel(
 //   1. The work is the merge of the cap_in row ends with the total
 //      candidates: cap_in + total items, total read on the device.  The
 //      grid comes from the card (kWaves times the blocks that fit on its
-//      SMs at once, at most kMaxBlocks), not from the data; block b takes
+//      SMs at once, at most kBlocks), not from the data; block b takes
 //      an equal share of the items, whole tiles of kTile, so a hub row
 //      spans blocks and a run of empty rows costs one item a row.
 //   2. Two warps find the share's ends on the merge path (32-way searches
@@ -152,7 +152,7 @@ __global__ void frontier_fill_kernel(
 //      carry of the block's previous tile) completes it.  The tile's rows
 //      are then written coalesced.  The row still open at the share's end
 //      leaves a (row, partial, hits) carry in scratch sized from
-//      kMaxBlocks; a second, small kernel adds to each row that a block
+//      kBlocks; a second, small kernel adds to each row that a block
 //      completed the carries of the blocks before it for that row, in a
 //      fixed order.  Two launches on the same card give the same bits for
 //      every semiring, float sums included; the order differs from a
@@ -176,30 +176,33 @@ constexpr int kWarps = kThreads / 32;
 // candidates touch shared memory at an odd stride, free of bank conflicts.
 constexpr int kItems = 7;
 constexpr int kTile = kThreads * kItems;
-// The most blocks a launch takes: the carries' scratch holds one slot each.
-constexpr int kMaxBlocks = 4096;
-// Blocks a launch takes for each that fits on an SM at once: more, smaller
-// shares even out the blocks whose items cost more than others' (on the
-// H100 the kMaxBlocks cap binds first).
-constexpr int kWaves = 8;
+// The blocks of every launch, whatever the data; the carries' scratch
+// holds a slot each.  On the H100 (132 SMs, 5 of these blocks resident on
+// each) that is about 6 waves: smaller shares even out the blocks whose
+// items cost more than others'.
+constexpr int kBlocks = 4096;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Semiring ops by code: 0 (+, *) count/sum, 1 (min, +) min_plus,
 // 2 (max, min) max_min, 3 (or, and) boolean.
-template <int OP, typename T>
-__device__ __forceinline__ T sr_add(T a, T b) {
-  if constexpr (OP == 0) return a + b;
-  else if constexpr (OP == 1) return b < a ? b : a;
-  else if constexpr (OP == 2) return b > a ? b : a;
-  else return (T)(a || b);
+template <typename T>
+__device__ __forceinline__ T sr_add(int op, T a, T b) {
+  switch (op) {
+    case 0: return a + b;
+    case 1: return b < a ? b : a;
+    case 2: return b > a ? b : a;
+    default: return (T)(a || b);
+  }
 }
 
-template <int OP, typename T>
-__device__ __forceinline__ T sr_mul(T a, T b) {
-  if constexpr (OP == 0) return a * b;
-  else if constexpr (OP == 1) return a + b;
-  else if constexpr (OP == 2) return b < a ? b : a;
-  else return (T)(a && b);
+template <typename T>
+__device__ __forceinline__ T sr_mul(int op, T a, T b) {
+  switch (op) {
+    case 0: return a * b;
+    case 1: return a + b;
+    case 2: return b < a ? b : a;
+    default: return (T)(a && b);
+  }
 }
 
 template <typename T>
@@ -282,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
     const int32_t* __restrict__ total_c, int32_t cap_in,
     const int32_t* __restrict__ seed, int32_t n0,
     const __grid_constant__ FillProbes probes,
-    const __grid_constant__ FoldAnns anns, T zero, T one,
+    const __grid_constant__ FoldAnns anns, int op_arg, T zero, T one,
     T* __restrict__ folded, int32_t* __restrict__ supp,
     int32_t* __restrict__ carry_row, T* __restrict__ carry_val,
     int32_t* __restrict__ carry_hits) {
@@ -300,6 +303,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int np = NP < FF_MAX_PROBES ? NP : probes.count;
+  const int op = OP >= 0 ? OP : op_arg;
   const int32_t total = __ldg(total_c);
   const int64_t items = (int64_t)cap_in + total;
   int64_t share = (items + gridDim.x - 1) / gridDim.x;
@@ -399,7 +403,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
                   : INT32_MAX;
           T contrib = one;
           if (ann0 != nullptr && act)
-            contrib = sr_mul<OP>(contrib,
+            contrib = sr_mul(op, contrib,
                                  ann0[clamp_i32(p0, 0, anns.n[0] - 1)]);
           // a candidate after the last of the previous round in its row has
           // its positions no earlier than that one's
@@ -442,7 +446,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
                      level_at(vals, n, pos[q]) == v;
               const T* an = static_cast<const T*>(anns.p[q + 1]);
               if (an != nullptr && act)
-                contrib = sr_mul<OP>(
+                contrib = sr_mul(op, 
                     contrib, an[clamp_i32(pos[q], 0, anns.n[q + 1] - 1)]);
               prev_pos[q] = __shfl_sync(kFull, pos[q], 31);
             }
@@ -477,7 +481,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
           ++xr;
         } else {
           if (s_keep[yc]) {
-            acc = sr_add<OP>(acc, s_contrib[yc]);
+            acc = sr_add(op, acc, s_contrib[yc]);
             ++hits;
           }
           ++yc;
@@ -495,7 +499,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
         const T v2 = shfl_up(inc, o);
         const int32_t h2 = __shfl_up_sync(kFull, ih, o);
         if (lane >= o && k2 == xr) {
-          inc = sr_add<OP>(v2, inc);
+          inc = sr_add(op, v2, inc);
           ih += h2;
         }
       }
@@ -513,7 +517,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
       int32_t ph = s_chits;
       for (int w = 0; w < warp; ++w) {
         if (pk == s_wkey[w]) {
-          pv = sr_add<OP>(pv, s_wval[w]);
+          pv = sr_add(op, pv, s_wval[w]);
           ph += s_whits[w];
         } else {
           pv = s_wval[w];
@@ -526,17 +530,17 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
         ev = pv;
         eh = ph;
       } else if (pk == ek) {
-        ev = sr_add<OP>(pv, ev);
+        ev = sr_add(op, pv, ev);
         eh += ph;
       }
       // (ek, ev, eh): the carry into this thread, whose first row is xr0
       if (ended) {
-        s_fold[xr0] = ek == xr0 ? sr_add<OP>(ev, first) : first;
+        s_fold[xr0] = ek == xr0 ? sr_add(op, ev, first) : first;
         s_supp[xr0] = (ek == xr0 ? eh : 0) + first_hits;
       }
       __syncthreads();
       if (tid == kThreads - 1) {  // the next tile's carry: row xe
-        s_cval = pk == xr ? sr_add<OP>(pv, inc) : inc;
+        s_cval = pk == xr ? sr_add(op, pv, inc) : inc;
         s_chits = pk == xr ? ph + ih : ih;
       }
       for (int r = tid; r < rows; r += kThreads) {
@@ -560,11 +564,13 @@ template <typename T, int OP>
 __global__ void fold_carry_kernel(const int32_t* __restrict__ carry_row,
                                   const T* __restrict__ carry_val,
                                   const int32_t* __restrict__ carry_hits,
-                                  int blocks, int32_t cap_in, T zero,
+                                  int blocks, int32_t cap_in, int op_arg,
+                                  T zero,
                                   T* __restrict__ folded,
                                   int32_t* __restrict__ supp) {
   const int b = (int)((blockIdx.x * blockDim.x + threadIdx.x) / 32) + 1;
   const int lane = threadIdx.x & 31;
+  const int op = OP >= 0 ? OP : op_arg;
   if (b >= blocks) return;  // uniform across the warp
   const int32_t r = carry_row[b - 1];        // x1 of block b - 1 = x0 of b
   if (r >= cap_in || carry_row[b] == r) return;  // b completed no row
@@ -574,17 +580,17 @@ __global__ void fold_carry_kernel(const int32_t* __restrict__ carry_row,
     const int k = top - lane;
     const bool in_run = k >= 0 && carry_row[k] == r;
     if (in_run) {
-      sum = sr_add<OP>(sum, carry_val[k]);
+      sum = sr_add(op, sum, carry_val[k]);
       hits += carry_hits[k];
     }
     if (__ballot_sync(kFull, in_run) != kFull) break;
   }
   for (int o = 16; o > 0; o >>= 1) {
-    sum = sr_add<OP>(sum, shfl_xor(sum, o));
+    sum = sr_add(op, sum, shfl_xor(sum, o));
     hits += __shfl_xor_sync(kFull, hits, o);
   }
   if (lane == 0 && hits > 0) {
-    folded[r] = sr_add<OP>(folded[r], sum);
+    folded[r] = sr_add(op, folded[r], sum);
     supp[r] += hits;
   }
 }
@@ -593,55 +599,26 @@ template <typename T, int OP, int NP>
 static int launch(const int32_t* lo0, const int32_t* offs,
                   const int32_t* total_c, int32_t cap_in,
                   const int32_t* seed, int32_t n0, const FillProbes* probes,
-                  const FoldAnns* anns, T zero, T one, T* folded,
+                  const FoldAnns* anns, int op, T zero, T one, T* folded,
                   int32_t* supp, void* scratch, cudaStream_t stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fold_kernel<T, OP, NP>, kThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  const int fit = sms * per_sm * kWaves;
-  const int blocks = fit < 1 ? 1 : (fit < kMaxBlocks ? fit : kMaxBlocks);
   int32_t* carry_row = static_cast<int32_t*>(scratch);
-  T* carry_val = reinterpret_cast<T*>(carry_row + kMaxBlocks);
-  int32_t* carry_hits = carry_row + 2 * kMaxBlocks;
-  fold_kernel<T, OP, NP><<<blocks, kThreads, 0, stream>>>(
-      lo0, offs, total_c, cap_in, seed, n0, *probes, *anns, zero, one,
+  T* carry_val = reinterpret_cast<T*>(carry_row + kBlocks);
+  int32_t* carry_hits = carry_row + 2 * kBlocks;
+  fold_kernel<T, OP, NP><<<kBlocks, kThreads, 0, stream>>>(
+      lo0, offs, total_c, cap_in, seed, n0, *probes, *anns, op, zero, one,
       folded, supp, carry_row, carry_val, carry_hits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || blocks < 2) return (int)err;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const int threads = 256;  // 8 warps, one for each block b >= 1
-  fold_carry_kernel<T, OP><<<(blocks - 1 + 7) / 8, threads, 0, stream>>>(
-      carry_row, carry_val, carry_hits, blocks, cap_in, zero, folded, supp);
+  fold_carry_kernel<T, OP><<<(kBlocks - 1 + 7) / 8, threads, 0, stream>>>(
+      carry_row, carry_val, carry_hits, kBlocks, cap_in, op, zero, folded,
+      supp);
   return (int)cudaGetLastError();
 }
 
 // For comparison only: a warp for each row (the design before the merge
 // path) with the descriptors __grid_constant__ and the probe count a
 // template parameter, and a row with no candidate leaving at once.
-template <typename T>
-__device__ __forceinline__ T rt_add(int op, T a, T b) {
-  switch (op) {
-    case 0: return a + b;
-    case 1: return b < a ? b : a;
-    case 2: return b > a ? b : a;
-    default: return (T)(a || b);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T rt_mul(int op, T a, T b) {
-  switch (op) {
-    case 0: return a * b;
-    case 1: return a + b;
-    case 2: return b < a ? b : a;
-    default: return (T)(a && b);
-  }
-}
-
 template <typename T, int NP>
 __global__ void __launch_bounds__(kThreads) fold_rows_kernel(
     const int32_t* __restrict__ lo0, const int32_t* __restrict__ offs,
@@ -674,7 +651,7 @@ __global__ void __launch_bounds__(kThreads) fold_rows_kernel(
     bool keep = true;
     T contrib = one;
     if (ann0 != nullptr)
-      contrib = rt_mul(op, contrib, ann0[clamp_i32(p0, 0, anns.n[0] - 1)]);
+      contrib = sr_mul(op, contrib, ann0[clamp_i32(p0, 0, anns.n[0] - 1)]);
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       if (q < np) {
@@ -690,17 +667,17 @@ __global__ void __launch_bounds__(kThreads) fold_rows_kernel(
         keep = keep && n > 0 && plo < end && level_at(vals, n, plo) == v;
         const T* an = static_cast<const T*>(anns.p[q + 1]);
         if (an != nullptr)
-          contrib = rt_mul(op, contrib,
+          contrib = sr_mul(op, contrib,
                            an[clamp_i32(plo, 0, anns.n[q + 1] - 1)]);
       }
     }
     if (keep) {
-      acc = rt_add(op, acc, contrib);
+      acc = sr_add(op, acc, contrib);
       ++hits;
     }
   }
   for (int o = 16; o > 0; o >>= 1) {
-    acc = rt_add(op, acc, shfl_xor(acc, o));
+    acc = sr_add(op, acc, shfl_xor(acc, o));
     hits += __shfl_xor_sync(kFull, hits, o);
   }
   if (lane == 0) {
@@ -723,8 +700,35 @@ static int launch_rows(const int32_t* lo0, const int32_t* offs,
   return (int)cudaGetLastError();
 }
 
-// design: 0 the merge path, 1 its generic probe path, 2 a warp a row,
-// 3 its generic probe path.
+// design: 0 the merge path, 1 the same with the op a runtime argument,
+// 2 a warp a row.
+template <typename T, int OP, int M>
+static int launch_np(const int32_t* lo0, const int32_t* offs,
+                     const int32_t* total_c, int32_t cap_in,
+                     const int32_t* seed, int32_t n0,
+                     const FillProbes* probes, const FoldAnns* anns, T zero,
+                     T one, T* folded, int32_t* supp, void* scratch,
+                     cudaStream_t stream) {
+  switch (probes->count) {
+    case 0:
+      return launch<T, M, 0>(lo0, offs, total_c, cap_in, seed, n0, probes,
+                             anns, OP, zero, one, folded, supp, scratch,
+                             stream);
+    case 1:
+      return launch<T, M, 1>(lo0, offs, total_c, cap_in, seed, n0, probes,
+                             anns, OP, zero, one, folded, supp, scratch,
+                             stream);
+    case 2:
+      return launch<T, M, 2>(lo0, offs, total_c, cap_in, seed, n0, probes,
+                             anns, OP, zero, one, folded, supp, scratch,
+                             stream);
+    default:
+      return launch<T, M, FF_MAX_PROBES>(lo0, offs, total_c, cap_in, seed,
+                                         n0, probes, anns, OP, zero, one,
+                                         folded, supp, scratch, stream);
+  }
+}
+
 template <typename T, int OP>
 static int launch_op(const int32_t* lo0, const int32_t* offs,
                      const int32_t* total_c, int32_t cap_in,
@@ -732,9 +736,8 @@ static int launch_op(const int32_t* lo0, const int32_t* offs,
                      const FillProbes* probes, const FoldAnns* anns, T zero,
                      T one, T* folded, int32_t* supp, void* scratch,
                      int design, cudaStream_t stream) {
-  const int np = design & 1 ? FF_MAX_PROBES : probes->count;
-  if (design >= 2) {
-    switch (np) {
+  if (design == 2) {
+    switch (probes->count) {
       case 0:
         return launch_rows<T, 0>(lo0, offs, total_c, cap_in, seed, n0,
                                  probes, anns, OP, zero, one, folded, supp,
@@ -754,21 +757,12 @@ static int launch_op(const int32_t* lo0, const int32_t* offs,
                                              stream);
     }
   }
-  switch (np) {
-    case 0:
-      return launch<T, OP, 0>(lo0, offs, total_c, cap_in, seed, n0, probes,
+  if (design == 1)
+    return launch_np<T, OP, -1>(lo0, offs, total_c, cap_in, seed, n0, probes,
+                                anns, zero, one, folded, supp, scratch,
+                                stream);
+  return launch_np<T, OP, OP>(lo0, offs, total_c, cap_in, seed, n0, probes,
                               anns, zero, one, folded, supp, scratch, stream);
-    case 1:
-      return launch<T, OP, 1>(lo0, offs, total_c, cap_in, seed, n0, probes,
-                              anns, zero, one, folded, supp, scratch, stream);
-    case 2:
-      return launch<T, OP, 2>(lo0, offs, total_c, cap_in, seed, n0, probes,
-                              anns, zero, one, folded, supp, scratch, stream);
-    default:
-      return launch<T, OP, FF_MAX_PROBES>(lo0, offs, total_c, cap_in, seed,
-                                          n0, probes, anns, zero, one,
-                                          folded, supp, scratch, stream);
-  }
 }
 
 static bool bad_args(int32_t cap_in, const FillProbes* probes) {
@@ -778,9 +772,9 @@ static bool bad_args(int32_t cap_in, const FillProbes* probes) {
 }  // namespace fold
 
 // Bytes of the carries' scratch a fold takes: a row, a value and a count
-// for each of at most kMaxBlocks blocks.
+// for each of at most kBlocks blocks.
 extern "C" int64_t frontier_fold_scratch_bytes() {
-  return 3 * 4 * (int64_t)fold::kMaxBlocks;
+  return 3 * 4 * (int64_t)fold::kBlocks;
 }
 
 // lo0, offs: [cap_in] (each row's seed segment start and exclusive-scan

@@ -818,21 +818,37 @@ def fold_equal(got, want, sr, torch):
     return torch.equal(got[0], want[0])
 
 
+def hub_case(n_probes, sr, device, torch, n=1_000_000):
+    """One row of ``n`` candidates, each probe a segment of ``n`` values:
+    sorted distinct values drawn from [0, 4n) with a seeded generator."""
+    g = torch.Generator().manual_seed(0)
+
+    def level():
+        v = torch.randperm(4 * n, generator=g)[:n].sort().values
+        return v.to(device=device, dtype=torch.int32)
+
+    zero = torch.zeros(1, dtype=torch.int32, device=device)
+    probes = tuple((level(), zero, torch.full_like(zero, n))
+                   for _ in range(n_probes + 1))
+    return (zero, zero, torch.tensor(n, dtype=torch.int32, device=device),
+            probes[0][0], probes[1:], (None,) * (n_probes + 1), sr)
+
+
 def fold_cases(args, fill_ops, plain, time_ms, torch):
     """``frontier_fold`` on cases built from the captured call's own
     arguments: (a) the call as it is; (b) the same arrays with no
     candidate (the cost of the capacity alone); (c) the per-row arrays
     cut to the live prefix, the rows up to the last with a candidate
     (the cost of the candidates alone); (d) case (c) with only the first
-    probe (the share of the searches).  Each held against the plain
+    probe (the share of the searches); and (e) one hub row
+    (:func:`hub_case`) with as many probes.  Each held against the plain
     version, two launches equal, timed (CUDA events, L2 flushed, median
     of 5): printed lines, not table rows."""
     lo0, offs, total, seed, probes, anns, sr = args
     live = torch.nonzero(fold_counts(args, torch)).flatten()
     cut = int(live[-1]) + 1 if live.numel() else 1
     cut_probes = tuple((v, lo[:cut], hi[:cut]) for v, lo, hi in probes)
-    hub_probes = tuple((v, lo[:1] * 0, torch.full_like(hi[:1], v.shape[0]))
-                       for v, lo, hi in probes)
+    hub = hub_case(len(probes), sr, seed.device, torch)
     cases = (
         ("(a) the captured call", args),
         ("(b) no candidate", (lo0, torch.zeros_like(offs),
@@ -842,9 +858,7 @@ def fold_cases(args, fill_ops, plain, time_ms, torch):
                              anns, sr)),
         ("(d) live prefix, one probe", (lo0[:cut], offs[:cut], total, seed,
                                         cut_probes[:1], anns[:2], sr)),
-        ("(e) one hub row", (lo0[:1] * 0, offs[:1] * 0,
-                             torch.full_like(total, int(seed.shape[0])),
-                             seed, hub_probes, anns, sr)))
+        ("(e) one hub row", hub))
     designs = ((0, "merge path, op a template parameter"),
                (1, "merge path, op a runtime argument"), (2, "warp a row"))
     for label, case in cases:

@@ -79,9 +79,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    whole buffer and of the total's records timed, and three more cases:
    every AND full, no match, and no match with every row from L1;
    ``frontier_fold`` two launches equal, with the bytes alone beside its
-   operation bound, and four cases built from its captured call, each
-   held and timed the same way: the call as it is, with no candidate, cut
-   to its live prefix, and that prefix with one probe;
+   operation bound, four cases built from its captured call, each held
+   and timed the same way: the call as it is, with no candidate, cut to
+   its live prefix, and that prefix with one probe, and a fifth, one hub
+   row of a million candidates;
    ``triangle_mm`` against the float64 count), or for
    ``spmv_ell`` within 1e-5 of each vertex's absolute sum of the plain
    version's sums taken in float64 (the float32 plain version's own
@@ -859,40 +860,25 @@ def fold_cases(args, fill_ops, plain, time_ms, torch):
         ("(d) live prefix, one probe", (lo0[:cut], offs[:cut], total, seed,
                                         cut_probes[:1], anns[:2], sr)),
         ("(e) one hub row", hub))
-    designs = ((0, "merge path, op a template parameter"),
-               (1, "merge path, op a runtime argument"), (2, "warp a row"))
     for label, case in cases:
         if label.startswith("(d)") and not probes:
             continue
-        want = plain(*case)
-        for design, _name in designs:
-            got = fill_ops.fold(*case, design=design)
-            check(fold_equal(got, want, sr, torch),
-                  f"frontier_fold {design}, {label}: differs from its plain "
-                  "version")
-            again = fill_ops.fold(*case, design=design)
-            check(all(torch.equal(x, y) for x, y in zip(got, again)),
-                  f"frontier_fold {design}, {label}: two launches differ")
-        order = [d for d, _ in designs] + [d for d, _ in designs][::-1]
-        ms = collections.defaultdict(list)
-        for design in order:
-            ms[design].append(time_ms(
-                lambda d=design: fill_ops.fold(*case, design=d), 5))
+        got = fill_ops.fold(*case)
+        check(fold_equal(got, plain(*case), sr, torch),
+              f"frontier_fold, {label}: differs from its plain version")
+        again = fill_ops.fold(*case)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"frontier_fold, {label}: two launches differ")
+        ms = time_ms(lambda: fill_ops.fold(*case), 5)
         cands, moved, ops = fold_work(case, torch)
         log(f"[kernel] frontier_fold, {label}: rows={int(case[0].shape[0])} "
             f"live_rows={int((fold_counts(case, torch) > 0).sum())} "
             f"candidates={cands} probes={len(case[4])} semiring={sr.name}; "
             f"equal to the plain "
-            f"version, two launches equal; kernel {ms[0][0]:.4f} ms (CUDA "
-            f"events, L2 flushed, median of 5), bound "
-            f"{ops / INT32_OPS_PER_S * 1e3:.4f}"
+            f"version, two launches equal; kernel {ms:.4f} ms (CUDA events, "
+            f"L2 flushed, median of 5), bound {ops / INT32_OPS_PER_S * 1e3:.4f}"
             f" ms (operations), bytes alone "
             f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved} bytes)")
-        for design, name in designs:
-            log(f"[kernel] frontier_fold, {label}, {name}: "
-                + " / ".join(f"{t:.4f}" for t in ms[design])
-                + " ms (timed in the order " + ", ".join(map(str, order))
-                + ")")
 
 
 def ptxas_lines(report):

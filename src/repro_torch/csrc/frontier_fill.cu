@@ -124,8 +124,7 @@ __global__ void frontier_fill_kernel(
 // Garland, SC'16), as in spmv_ell.cu.
 //   1. The work is the merge of the cap_in row ends with the total
 //      candidates: cap_in + total items, total read on the device.  The
-//      grid comes from the card (kWaves times the blocks that fit on its
-//      SMs at once, at most kBlocks), not from the data; block b takes
+//      grid is a fixed kBlocks, not sized from the data; block b takes
 //      an equal share of the items, whole tiles of kTile, so a hub row
 //      spans blocks and a run of empty rows costs one item a row.
 //   2. Two warps find the share's ends on the merge path (32-way searches
@@ -160,7 +159,13 @@ __global__ void frontier_fill_kernel(
 //      float32 rounding.
 //   5. The probe count is a template parameter (0, 1, 2, and a path for
 //      up to FF_MAX_PROBES); the descriptors are __grid_constant__ and
-//      indexed only by unrolled constants, so no thread copies them.
+//      indexed only by unrolled constants, so no thread copies them.  The
+//      semiring op is a uniform runtime argument (as fast as a template
+//      parameter on the H100).
+// A warp for each row is simpler and spends less on live candidates, but
+// pays a warp for each dead row of the capacity and puts a hub row on one
+// warp: on the H100 it lost the main path's call by 8%, and a row of a
+// million candidates took 142 ms against 0.08 ms here.
 // Rows with no candidate get the semiring's zero and support 0.
 
 struct FoldAnns {
@@ -177,9 +182,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 7;
 constexpr int kTile = kThreads * kItems;
 // The blocks of every launch, whatever the data; the carries' scratch
-// holds a slot each.  On the H100 (132 SMs, 5 of these blocks resident on
-// each) that is about 6 waves: smaller shares even out the blocks whose
-// items cost more than others'.
+// holds a slot each.  On the H100's 132 SMs that is several waves of
+// resident blocks: smaller shares even out the blocks whose items cost
+// more than others'.
 constexpr int kBlocks = 4096;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -279,13 +284,13 @@ __device__ __forceinline__ int32_t level_at(const int32_t* __restrict__ vals,
   return __ldg(vals + clamp_i32(p, 0, n - 1));
 }
 
-template <typename T, int OP, int NP>
+template <typename T, int NP>
 __global__ void __launch_bounds__(kThreads) fold_kernel(
     const int32_t* __restrict__ lo0, const int32_t* __restrict__ offs,
     const int32_t* __restrict__ total_c, int32_t cap_in,
     const int32_t* __restrict__ seed, int32_t n0,
     const __grid_constant__ FillProbes probes,
-    const __grid_constant__ FoldAnns anns, int op_arg, T zero, T one,
+    const __grid_constant__ FoldAnns anns, int op, T zero, T one,
     T* __restrict__ folded, int32_t* __restrict__ supp,
     int32_t* __restrict__ carry_row, T* __restrict__ carry_val,
     int32_t* __restrict__ carry_hits) {
@@ -303,7 +308,6 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int np = NP < FF_MAX_PROBES ? NP : probes.count;
-  const int op = OP >= 0 ? OP : op_arg;
   const int32_t total = __ldg(total_c);
   const int64_t items = (int64_t)cap_in + total;
   int64_t share = (items + gridDim.x - 1) / gridDim.x;
@@ -404,7 +408,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
           T contrib = one;
           if (ann0 != nullptr && act)
             contrib = sr_mul(op, contrib,
-                                 ann0[clamp_i32(p0, 0, anns.n[0] - 1)]);
+                             ann0[clamp_i32(p0, 0, anns.n[0] - 1)]);
           // a candidate after the last of the previous round in its row has
           // its positions no earlier than that one's
           const bool carried = act && r == prev_row && v >= prev_v;
@@ -446,8 +450,8 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
                      level_at(vals, n, pos[q]) == v;
               const T* an = static_cast<const T*>(anns.p[q + 1]);
               if (an != nullptr && act)
-                contrib = sr_mul(op, 
-                    contrib, an[clamp_i32(pos[q], 0, anns.n[q + 1] - 1)]);
+                contrib = sr_mul(
+                    op, contrib, an[clamp_i32(pos[q], 0, anns.n[q + 1] - 1)]);
               prev_pos[q] = __shfl_sync(kFull, pos[q], 31);
             }
           }
@@ -560,17 +564,15 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
 // A warp for each block b >= 1: if b completed row r = x0(b), the row gets
 // the carries of the blocks before b for r (a hub's run spans many), the
 // lanes striding over the run and a fixed butterfly adding their parts.
-template <typename T, int OP>
+template <typename T>
 __global__ void fold_carry_kernel(const int32_t* __restrict__ carry_row,
                                   const T* __restrict__ carry_val,
                                   const int32_t* __restrict__ carry_hits,
-                                  int blocks, int32_t cap_in, int op_arg,
-                                  T zero,
-                                  T* __restrict__ folded,
+                                  int blocks, int32_t cap_in, int op,
+                                  T zero, T* __restrict__ folded,
                                   int32_t* __restrict__ supp) {
   const int b = (int)((blockIdx.x * blockDim.x + threadIdx.x) / 32) + 1;
   const int lane = threadIdx.x & 31;
-  const int op = OP >= 0 ? OP : op_arg;
   if (b >= blocks) return;  // uniform across the warp
   const int32_t r = carry_row[b - 1];        // x1 of block b - 1 = x0 of b
   if (r >= cap_in || carry_row[b] == r) return;  // b completed no row
@@ -595,7 +597,7 @@ __global__ void fold_carry_kernel(const int32_t* __restrict__ carry_row,
   }
 }
 
-template <typename T, int OP, int NP>
+template <typename T, int NP>
 static int launch(const int32_t* lo0, const int32_t* offs,
                   const int32_t* total_c, int32_t cap_in,
                   const int32_t* seed, int32_t n0, const FillProbes* probes,
@@ -604,165 +606,46 @@ static int launch(const int32_t* lo0, const int32_t* offs,
   int32_t* carry_row = static_cast<int32_t*>(scratch);
   T* carry_val = reinterpret_cast<T*>(carry_row + kBlocks);
   int32_t* carry_hits = carry_row + 2 * kBlocks;
-  fold_kernel<T, OP, NP><<<kBlocks, kThreads, 0, stream>>>(
+  fold_kernel<T, NP><<<kBlocks, kThreads, 0, stream>>>(
       lo0, offs, total_c, cap_in, seed, n0, *probes, *anns, op, zero, one,
       folded, supp, carry_row, carry_val, carry_hits);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;  // 8 warps, one for each block b >= 1
-  fold_carry_kernel<T, OP><<<(kBlocks - 1 + 7) / 8, threads, 0, stream>>>(
+  fold_carry_kernel<T><<<(kBlocks - 1 + 7) / 8, threads, 0, stream>>>(
       carry_row, carry_val, carry_hits, kBlocks, cap_in, op, zero, folded,
       supp);
   return (int)cudaGetLastError();
 }
 
-// For comparison only: a warp for each row (the design before the merge
-// path) with the descriptors __grid_constant__ and the probe count a
-// template parameter, and a row with no candidate leaving at once.
-template <typename T, int NP>
-__global__ void __launch_bounds__(kThreads) fold_rows_kernel(
-    const int32_t* __restrict__ lo0, const int32_t* __restrict__ offs,
-    const int32_t* __restrict__ total_c, int32_t cap_in,
-    const int32_t* __restrict__ seed, int32_t n0,
-    const __grid_constant__ FillProbes probes,
-    const __grid_constant__ FoldAnns anns, int op, T zero, T one,
-    T* __restrict__ folded, int32_t* __restrict__ supp) {
-  const int64_t w = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (w >= cap_in) return;  // uniform across the warp
-  const int32_t row = (int32_t)w;
-  const int32_t c =
-      row_end(offs, __ldg(total_c), cap_in, row) - __ldg(offs + row);
-  if (c <= 0) {
-    if (lane == 0) {
-      folded[row] = zero;
-      supp[row] = 0;
-    }
-    return;
-  }
-  const int np = NP < FF_MAX_PROBES ? NP : probes.count;
-  const int32_t base = __ldg(lo0 + row);
-  const T* ann0 = static_cast<const T*>(anns.p[0]);
-  T acc = zero;
-  int32_t hits = 0;
-  for (int32_t i = lane; i < c; i += 32) {
-    const int32_t p0 = base + i;
-    const int32_t v = __ldg(seed + clamp_i32(p0, 0, n0 > 0 ? n0 - 1 : 0));
-    bool keep = true;
-    T contrib = one;
-    if (ann0 != nullptr)
-      contrib = sr_mul(op, contrib, ann0[clamp_i32(p0, 0, anns.n[0] - 1)]);
-#pragma unroll
-    for (int q = 0; q < NP; ++q) {
-      if (q < np) {
-        const int32_t* vals = probes.p[q].vals;
-        const int32_t n = probes.p[q].n;
-        int32_t plo = __ldg(probes.p[q].lo + row);
-        int32_t phi = __ldg(probes.p[q].hi + row);
-        const int32_t end = phi;
-        while (plo < phi) {
-          const int32_t mid = plo + ((phi - plo) >> 1);
-          if (level_at(vals, n, mid) < v) plo = mid + 1; else phi = mid;
-        }
-        keep = keep && n > 0 && plo < end && level_at(vals, n, plo) == v;
-        const T* an = static_cast<const T*>(anns.p[q + 1]);
-        if (an != nullptr)
-          contrib = sr_mul(op, contrib,
-                           an[clamp_i32(plo, 0, anns.n[q + 1] - 1)]);
-      }
-    }
-    if (keep) {
-      acc = sr_add(op, acc, contrib);
-      ++hits;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    acc = sr_add(op, acc, shfl_xor(acc, o));
-    hits += __shfl_xor_sync(kFull, hits, o);
-  }
-  if (lane == 0) {
-    folded[row] = acc;
-    supp[row] = hits;
-  }
-}
-
-template <typename T, int NP>
-static int launch_rows(const int32_t* lo0, const int32_t* offs,
-                       const int32_t* total_c, int32_t cap_in,
-                       const int32_t* seed, int32_t n0,
-                       const FillProbes* probes, const FoldAnns* anns, int op,
-                       T zero, T one, T* folded, int32_t* supp,
-                       cudaStream_t stream) {
-  const int64_t blocks = ((int64_t)cap_in * 32 + kThreads - 1) / kThreads;
-  fold_rows_kernel<T, NP><<<(unsigned int)blocks, kThreads, 0, stream>>>(
-      lo0, offs, total_c, cap_in, seed, n0, *probes, *anns, op, zero, one,
-      folded, supp);
-  return (int)cudaGetLastError();
-}
-
-// design: 0 the merge path, 1 the same with the op a runtime argument,
-// 2 a warp a row.
-template <typename T, int OP, int M>
-static int launch_np(const int32_t* lo0, const int32_t* offs,
-                     const int32_t* total_c, int32_t cap_in,
-                     const int32_t* seed, int32_t n0,
-                     const FillProbes* probes, const FoldAnns* anns, T zero,
-                     T one, T* folded, int32_t* supp, void* scratch,
-                     cudaStream_t stream) {
-  switch (probes->count) {
-    case 0:
-      return launch<T, M, 0>(lo0, offs, total_c, cap_in, seed, n0, probes,
-                             anns, OP, zero, one, folded, supp, scratch,
-                             stream);
-    case 1:
-      return launch<T, M, 1>(lo0, offs, total_c, cap_in, seed, n0, probes,
-                             anns, OP, zero, one, folded, supp, scratch,
-                             stream);
-    case 2:
-      return launch<T, M, 2>(lo0, offs, total_c, cap_in, seed, n0, probes,
-                             anns, OP, zero, one, folded, supp, scratch,
-                             stream);
-    default:
-      return launch<T, M, FF_MAX_PROBES>(lo0, offs, total_c, cap_in, seed,
-                                         n0, probes, anns, OP, zero, one,
-                                         folded, supp, scratch, stream);
-  }
-}
-
-template <typename T, int OP>
+// The probe count picks the instance: each of 0, 1 and 2 probes has its
+// own (on the H100 the generic one took 2.6 times as long on the main
+// path's call, for its registers).
+template <typename T>
 static int launch_op(const int32_t* lo0, const int32_t* offs,
                      const int32_t* total_c, int32_t cap_in,
                      const int32_t* seed, int32_t n0,
-                     const FillProbes* probes, const FoldAnns* anns, T zero,
-                     T one, T* folded, int32_t* supp, void* scratch,
-                     int design, cudaStream_t stream) {
-  if (design == 2) {
-    switch (probes->count) {
-      case 0:
-        return launch_rows<T, 0>(lo0, offs, total_c, cap_in, seed, n0,
-                                 probes, anns, OP, zero, one, folded, supp,
-                                 stream);
-      case 1:
-        return launch_rows<T, 1>(lo0, offs, total_c, cap_in, seed, n0,
-                                 probes, anns, OP, zero, one, folded, supp,
-                                 stream);
-      case 2:
-        return launch_rows<T, 2>(lo0, offs, total_c, cap_in, seed, n0,
-                                 probes, anns, OP, zero, one, folded, supp,
-                                 stream);
-      default:
-        return launch_rows<T, FF_MAX_PROBES>(lo0, offs, total_c, cap_in,
-                                             seed, n0, probes, anns, OP,
-                                             zero, one, folded, supp,
-                                             stream);
-    }
+                     const FillProbes* probes, const FoldAnns* anns, int op,
+                     T zero, T one, T* folded, int32_t* supp, void* scratch,
+                     cudaStream_t stream) {
+  switch (probes->count) {
+    case 0:
+      return launch<T, 0>(lo0, offs, total_c, cap_in, seed, n0, probes,
+                          anns, op, zero, one, folded, supp, scratch,
+                          stream);
+    case 1:
+      return launch<T, 1>(lo0, offs, total_c, cap_in, seed, n0, probes,
+                          anns, op, zero, one, folded, supp, scratch,
+                          stream);
+    case 2:
+      return launch<T, 2>(lo0, offs, total_c, cap_in, seed, n0, probes,
+                          anns, op, zero, one, folded, supp, scratch,
+                          stream);
+    default:
+      return launch<T, FF_MAX_PROBES>(lo0, offs, total_c, cap_in, seed, n0,
+                                      probes, anns, op, zero, one, folded,
+                                      supp, scratch, stream);
   }
-  if (design == 1)
-    return launch_np<T, OP, -1>(lo0, offs, total_c, cap_in, seed, n0, probes,
-                                anns, zero, one, folded, supp, scratch,
-                                stream);
-  return launch_np<T, OP, OP>(lo0, offs, total_c, cap_in, seed, n0, probes,
-                              anns, zero, one, folded, supp, scratch, stream);
 }
 
 static bool bad_args(int32_t cap_in, const FillProbes* probes) {
@@ -772,7 +655,7 @@ static bool bad_args(int32_t cap_in, const FillProbes* probes) {
 }  // namespace fold
 
 // Bytes of the carries' scratch a fold takes: a row, a value and a count
-// for each of at most kBlocks blocks.
+// for each of the kBlocks blocks.
 extern "C" int64_t frontier_fold_scratch_bytes() {
   return 3 * 4 * (int64_t)fold::kBlocks;
 }
@@ -789,12 +672,12 @@ extern "C" int frontier_fold_i32(const int32_t* lo0, const int32_t* offs,
                                  const FoldAnns* anns, int32_t op,
                                  int32_t zero, int32_t one, int32_t* folded,
                                  int32_t* supp, void* scratch,
-                                 int32_t design, cudaStream_t stream) {
+                                 cudaStream_t stream) {
   if (fold::bad_args(cap_in, probes) || op != 0)
     return (int)cudaErrorInvalidValue;
-  return fold::launch_op<int32_t, 0>(lo0, offs, total_c, cap_in, seed, n0,
-                                     probes, anns, zero, one, folded, supp,
-                                     scratch, design, stream);
+  return fold::launch_op<int32_t>(lo0, offs, total_c, cap_in, seed, n0,
+                                  probes, anns, op, zero, one, folded, supp,
+                                  scratch, stream);
 }
 
 extern "C" int frontier_fold_f32(const int32_t* lo0, const int32_t* offs,
@@ -803,25 +686,12 @@ extern "C" int frontier_fold_f32(const int32_t* lo0, const int32_t* offs,
                                  const FillProbes* probes,
                                  const FoldAnns* anns, int32_t op, float zero,
                                  float one, float* folded, int32_t* supp,
-                                 void* scratch, int32_t design,
-                                 cudaStream_t stream) {
-  if (fold::bad_args(cap_in, probes)) return (int)cudaErrorInvalidValue;
-  switch (op) {
-    case 0:
-      return fold::launch_op<float, 0>(lo0, offs, total_c, cap_in, seed, n0,
-                                       probes, anns, zero, one, folded, supp,
-                                       scratch, design, stream);
-    case 1:
-      return fold::launch_op<float, 1>(lo0, offs, total_c, cap_in, seed, n0,
-                                       probes, anns, zero, one, folded, supp,
-                                       scratch, design, stream);
-    case 2:
-      return fold::launch_op<float, 2>(lo0, offs, total_c, cap_in, seed, n0,
-                                       probes, anns, zero, one, folded, supp,
-                                       scratch, design, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                                 void* scratch, cudaStream_t stream) {
+  if (fold::bad_args(cap_in, probes) || op < 0 || op > 2)
+    return (int)cudaErrorInvalidValue;
+  return fold::launch_op<float>(lo0, offs, total_c, cap_in, seed, n0, probes,
+                                anns, op, zero, one, folded, supp, scratch,
+                                stream);
 }
 
 extern "C" int frontier_fold_u8(const int32_t* lo0, const int32_t* offs,
@@ -831,12 +701,12 @@ extern "C" int frontier_fold_u8(const int32_t* lo0, const int32_t* offs,
                                 const FoldAnns* anns, int32_t op,
                                 uint8_t zero, uint8_t one, uint8_t* folded,
                                 int32_t* supp, void* scratch,
-                                int32_t design, cudaStream_t stream) {
+                                cudaStream_t stream) {
   if (fold::bad_args(cap_in, probes) || op != 3)
     return (int)cudaErrorInvalidValue;
-  return fold::launch_op<uint8_t, 3>(lo0, offs, total_c, cap_in, seed, n0,
-                                     probes, anns, zero, one, folded, supp,
-                                     scratch, design, stream);
+  return fold::launch_op<uint8_t>(lo0, offs, total_c, cap_in, seed, n0,
+                                  probes, anns, op, zero, one, folded, supp,
+                                  scratch, stream);
 }
 
 extern "C" int frontier_fill(const int32_t* total_c, const int32_t* offs,

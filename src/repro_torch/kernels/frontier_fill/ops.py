@@ -137,8 +137,7 @@ def _fold_lib(suffix: str, scalar):
         p = ctypes.c_void_p
         fn.argtypes = [p, p, p, ctypes.c_int32, p, ctypes.c_int32,
                        ctypes.POINTER(_Probes), ctypes.POINTER(_FoldAnns),
-                       ctypes.c_int32, scalar, scalar, p, p, p,
-                       ctypes.c_int32, p]
+                       ctypes.c_int32, scalar, scalar, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.frontier_fold_scratch_bytes.restype = ctypes.c_int64
     return fn, lib.frontier_fold_scratch_bytes
@@ -146,7 +145,7 @@ def _fold_lib(suffix: str, scalar):
 
 def fold(lo0: torch.Tensor, offs: torch.Tensor, total: torch.Tensor,
          seed: torch.Tensor, probes: Sequence[Tuple], leaf_anns: Sequence,
-         sr, design: int = 0):
+         sr):
     """Terminal fold of every row's candidates; see the module docstring.
 
     lo0, offs : int32 [cap_in] — each row's (clipped) seed segment start
@@ -194,7 +193,6 @@ def fold(lo0: torch.Tensor, offs: torch.Tensor, total: torch.Tensor,
              seed.data_ptr(), int(seed.shape[0]),
              ctypes.byref(_probes_desc(probes)), ctypes.byref(anns), op,
              scalar(sr.zero), scalar(sr.one), folded.data_ptr(),
-             supp.data_ptr(), scratch.data_ptr(), design,
-             common.stream_ptr(dev))
+             supp.data_ptr(), scratch.data_ptr(), common.stream_ptr(dev))
     common.check_launch(err, FOLD_NAME)
     return folded, supp

@@ -24,7 +24,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    runs there), each equal to the port's host oracle
    (``Engine(backend="numpy")``) with no per-extension host sync for the
    counting queries; the pipeline, both cohort kernels and every kernel
-   must fire;
+   must fire, ``bitset_intersect`` (the fused ``bitset_pair_count``) once
+   a both-dense count;
 3. the full-size triangle count is held against the host oracle;
 4. recursion path, with every launch counter set to 0 just before and read
    just after: on the full-size graph ``Engine(backend="device")`` runs
@@ -83,7 +84,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and timed the same way: the call as it is, with no candidate, cut to
    its live prefix, and that prefix with one probe, and a fifth, one hub
    row of a million candidates;
-   ``triangle_mm`` against the float64 count), or for
+   ``bitset_intersect``, the fused ``bitset_pair_count``, two launches
+   equal, with five cases from its captured call: as it is, its pairs
+   shuffled, the matched-pair ``bitset_and_popcount`` on its matched
+   blocks, that route's host wall, and the largest set against every
+   slot; ``triangle_mm`` against the float64 count), or for
    ``spmv_ell`` within 1e-5 of each vertex's absolute sum of the plain
    version's sums taken in float64 (the float32 plain version's own
    distance from them is printed: on the width-1 packing it adds a hub's
@@ -881,6 +886,116 @@ def fold_cases(args, fill_ops, plain, time_ms, torch):
             f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved} bytes)")
 
 
+def pair_count_work(args, torch):
+    """What one ``bitset_pair_count`` call needs: its set pairs P, the
+    ids of both lists of every pair (the merge steps), the matched block
+    pairs, the slots it touches and their blocks; its bytes (the slot
+    ids and the count of each pair, two offsets a touched slot, each
+    touched block's id and 32-byte row once) and its int32 operations (a
+    merge step an id, an AND, a popcount and an add a word of each
+    matched block)."""
+    from repro_torch.kernels.bitset_intersect.ref import match_blocks_ref
+    offs, bids, words, sa, sb = args
+    off = offs.long()
+    lens = off[1:] - off[:-1]
+    p = int(sa.shape[0])
+    ids = int((lens[sa.long()] + lens[sb.long()]).sum())
+    matched = int(match_blocks_ref(offs, bids, sa, sb)[0].numel())
+    slots = torch.unique(torch.cat([sa, sb])).long()
+    touched = int(lens[slots].sum())
+    w = int(words.shape[1])
+    moved = 12 * p + 8 * int(slots.numel()) + (4 + 4 * w) * touched
+    ops = ids + 3 * w * matched
+    return (f"set_pairs={p} ids={ids} matched_blocks={matched} "
+            f"touched_slots={int(slots.numel())} touched_blocks={touched}",
+            moved, ops)
+
+
+def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
+    """``bitset_pair_count`` on cases built from the captured call: (a)
+    the call as it is; (b) the same set pairs in a seeded shuffled order,
+    so that no run of pairs shares ``a`` (what the grouping buys); (c)
+    the matched-pair kernel ``bitset_and_popcount`` on the call's matched
+    block pairs, expanded on the card by the plain block matching (the
+    route's kernel before the fused one); (d) that route's host wall for
+    the call, as the engine ran it (``intersect.bitset_intersect_count``:
+    host block matching with one search on the card, the uploads, the
+    matched-pair kernel, the fetch of its per-block counts and their
+    ``np.add.at``), one reading; (e) the dense set with the most blocks
+    against every dense slot.  Each equal to the plain version, the
+    kernels' two launches equal, timed (CUDA events, L2 flushed, median
+    of 20): printed lines, not table rows."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.core import intersect as I
+    from repro_torch.kernels.bitset_intersect.ref import match_blocks_ref
+    from repro_torch.kernels.common import host_get
+    offs, bids, words, sa, sb = args
+    want = plain(*args)
+    perm = torch.randperm(int(sa.shape[0]),
+                          generator=torch.Generator().manual_seed(0)
+                          ).to(sa.device)
+    n_slots = int(offs.shape[0]) - 1
+    hub = int(torch.argmax(offs[1:] - offs[:-1]))
+    every = torch.arange(n_slots, dtype=torch.int32, device=sa.device)
+    for label, case in (
+            ("(a) the captured call", args),
+            ("(b) shuffled", (offs, bids, words, sa[perm], sb[perm])),
+            ("(e) the largest set against every slot",
+             (offs, bids, words, torch.full_like(every, hub), every))):
+        got = bitset_ops.bitset_pair_count(*case)
+        check(torch.equal(got, plain(*case)),
+              f"bitset_pair_count, {label}: differs from its plain version")
+        check(torch.equal(got, bitset_ops.bitset_pair_count(*case)),
+              f"bitset_pair_count, {label}: two launches differ")
+        if label.startswith("(b)"):
+            check(torch.equal(got, want[perm]),
+                  "bitset_pair_count: shuffled pairs give other counts")
+        ms = time_ms(lambda: bitset_ops.bitset_pair_count(*case), 20)
+        work, moved, ops = pair_count_work(case, torch)
+        log(f"[kernel] bitset_pair_count, {label}: {work}; equal to the "
+            f"plain version, two launches equal; kernel {ms:.4f} ms (CUDA "
+            f"events, L2 flushed, median of 20), bound "
+            f"{max(moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3:.4f}"
+            f" ms (bytes {moved / HBM_BYTES_PER_S * 1e3:.4f}, operations "
+            f"{ops / INT32_OPS_PER_S * 1e3:.4f})")
+    pid, pos_a, pos_b = match_blocks_ref(offs, bids, sa, sb)
+    pa, pb = pos_a.to(torch.int32), pos_b.to(torch.int32)
+    per_block = bitset_ops.bitset_and_popcount(words, pa, pb)
+    summed = torch.zeros(int(sa.shape[0]), dtype=torch.int64,
+                         device=sa.device).index_add_(0, pid, per_block.long())
+    check(torch.equal(summed.to(torch.int32), want),
+          "bitset_and_popcount on the matched blocks: other counts")
+    check(torch.equal(per_block, bitset_ops.bitset_and_popcount(words, pa, pb)),
+          "bitset_and_popcount: two launches differ")
+    ms = time_ms(lambda: bitset_ops.bitset_and_popcount(words, pa, pb), 20)
+    moved = (int(torch.unique(torch.cat([pa, pb])).numel()) * 4
+             * int(words.shape[1]) + 12 * int(pa.shape[0]))
+    log(f"[kernel] bitset_pair_count, (c) the matched-pair kernel "
+        f"bitset_and_popcount on the call's {int(pa.shape[0])} matched "
+        f"block pairs: equal after the sum per set pair, two launches "
+        f"equal; kernel {ms:.4f} ms (CUDA events, L2 flushed, median of "
+        f"20), bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+    del pid, pos_a, pos_b, pa, pb, per_block, summed
+    host = types.SimpleNamespace(offsets=host_get(offs).astype(np.int64),
+                                 block_ids=host_get(bids))
+    a_h, b_h = host_get(sa).astype(np.int64), host_get(sb).astype(np.int64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    old = I.bitset_intersect_count(host, a_h, b_h,
+                                   bitset_ops.bitset_and_popcount, bids,
+                                   words)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(np.array_equal(old, host_get(want).astype(np.int64)),
+          "the matched-pair route gives other counts")
+    log(f"[kernel] bitset_pair_count, (d) the matched-pair route's host "
+        f"wall for the call (block matching, uploads, kernel, fetch, "
+        f"np.add.at): {wall:.4f} s (host clock, one reading)")
+
+
 def ptxas_lines(report):
     """One line for each entry function of an ``nvcc -Xptxas=-v``
     report: its (demangled) name, registers, stack frame and spills."""
@@ -1062,7 +1177,7 @@ def main():
     from repro_torch.kernels import common
     from repro_torch.kernels.bitset_intersect import ops as bitset_ops
     from repro_torch.kernels.bitset_intersect.ref import \
-        bitset_and_popcount_ref
+        bitset_pair_count_ref
     from repro_torch.kernels.fm_interaction import ops as fm_ops
     from repro_torch.kernels.fm_interaction.ref import (fm_interaction_ref,
                                                         fm_interaction_scale)
@@ -1097,8 +1212,8 @@ def main():
         "frontier_fill": Capture(fill_ops, "fill", lambda *a: a[6]),
         "frontier_fold": Capture(fill_ops, "fold",
                                  lambda lo0, *a: int(lo0.shape[0])),
-        "bitset_intersect": Capture(bitset_ops, "bitset_and_popcount",
-                                    lambda w, a, b: int(a.shape[0])),
+        "bitset_intersect": Capture(bitset_ops, "bitset_pair_count",
+                                    lambda o, i, w, a, b: int(a.shape[0])),
         "uint_intersect": Capture(uint_ops, "intersect_count_csr",
                                   lambda o, nb, u, v: int(u.shape[0])),
     }
@@ -1159,6 +1274,10 @@ def main():
           "no pair took the uint kernel")
     for name in KERNELS:
         check(launches.get(name, 0) > 0, f"kernel {name} never launched")
+    check(launches["bitset_intersect"] == captures["bitset_intersect"].calls,
+          f"bitset_intersect: {launches['bitset_intersect']} launches for "
+          f"{captures['bitset_intersect'].calls} both-dense counts, not one "
+          "a call")
     if "--profile" in sys.argv[1:]:
         profile_query(eng, W.TRIANGLE_COUNT, BagResultCache, torch)
     del eng
@@ -1286,15 +1405,13 @@ def main():
                      f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
             fold_cases(args, fill_ops, fold_ref, time_ms, torch)
         elif name == "bitset_intersect":
-            words, pa, pb = args
-            kern = lambda: bitset_ops.bitset_and_popcount(*args)  # noqa: E731
-            plain = lambda: bitset_and_popcount_ref(*args)        # noqa: E731
-            rows_read = int(torch.unique(torch.cat([pa, pb])).numel())
-            w = int(words.shape[1])
-            moved = rows_read * w * 4 + nbytes(pa, pb) + int(pa.shape[0]) * 4
-            ops = int(pa.shape[0]) * w * 3
-            shape = (f"pairs={int(pa.shape[0])} blocks={int(words.shape[0])}"
-                     f" words={w} rows_read={rows_read}")
+            kern = lambda: bitset_ops.bitset_pair_count(*args)    # noqa: E731
+            plain = lambda: bitset_pair_count_ref(*args)          # noqa: E731
+            shape, moved, ops = pair_count_work(args, torch)
+            shape += (f" blocks={int(args[2].shape[0])} "
+                      f"words={int(args[2].shape[1])}")
+            pair_count_cases(args, bitset_ops, bitset_pair_count_ref,
+                             time_ms, torch)
         elif name == "spmv_ell":
             cols, vals, row_ptr, x = args
             kern = lambda: ell_ops.spmv_ell(*args)                # noqa: E731

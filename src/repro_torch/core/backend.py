@@ -252,7 +252,7 @@ class DeviceBackend(ExecBackend):
     # ------------------------------------------------------ terminal folds
     def _pair_store(self, trie, threshold=None):
         return engine_store_for(trie, device=self.device,
-                                word_kernel=bitset_ops.bitset_and_popcount,
+                                pair_kernel=bitset_ops.bitset_pair_count,
                                 uint_kernel=uint_ops.intersect_count_csr,
                                 materialize_kernel=(
                                     mat_ops.bitset_pair_materialize),

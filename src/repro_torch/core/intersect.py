@@ -8,8 +8,10 @@ in the paper:
     larger one with a lockstep branch-free binary search (cost ∝
     |smaller| · log|larger|, the **min property** of Section 2.1).
   * ``bitset ∩ bitset`` — intersect block offsets (as uint sets), then AND
-    the matched 2^k-bit blocks and popcount.  The AND+popcount is the
-    ``bitset_intersect`` CUDA kernel, injected by the device backend.
+    the matched 2^k-bit blocks and popcount.  On the device backend the
+    whole count is the ``bitset_intersect`` CUDA kernel's
+    ``bitset_pair_count``, injected into the layout store; the host oracle
+    takes :func:`bitset_intersect_count`.
   * ``uint ∩ bitset``   — probe each uint element into the bitset blocks.
 
 The data-dependent expansions run on the host in numpy, as in the
@@ -212,7 +214,8 @@ def bitset_intersect_count(bs: BlockedBitset, a_slots: np.ndarray,
     "we pack the offsets contiguously, which allows us to regard the offsets
     as a uint layout"). Step 2 ANDs matched blocks and popcounts:
     ``word_and_popcount(words_dev, pos_a, pos_b)`` gathers the matched rows
-    of the device word table itself.
+    of the device word table itself.  The host oracle's route; the device
+    backend's runs both steps in one kernel (``bitset_pair_count``).
     """
     pair_id, _, pos_a, pos_b = intersect_pairs_uint(
         bs.offsets, bs.block_ids, np.asarray(a_slots, np.int64),

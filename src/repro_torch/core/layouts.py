@@ -75,7 +75,7 @@ def decide_set_level(csr: CSRGraph, threshold: float = SIMD_REGISTER_BITS) -> La
 
 # ----------------------------------------------------------- engine routing
 def engine_store_for(trie, *, device: torch.device,
-                     word_kernel: Optional[Callable] = None,
+                     pair_kernel: Optional[Callable] = None,
                      uint_kernel: Optional[Callable] = None,
                      materialize_kernel: Optional[Callable] = None,
                      uint_max_len: int = 256,
@@ -111,7 +111,7 @@ def engine_store_for(trie, *, device: torch.device,
     if store is None:
         csr = CSRGraph.from_trie(trie)
         store = HybridSetStore.build(csr, device, threshold=threshold,
-                                     word_kernel=word_kernel,
+                                     pair_kernel=pair_kernel,
                                      uint_kernel=uint_kernel,
                                      materialize_kernel=materialize_kernel,
                                      uint_max_len=uint_max_len)
@@ -136,9 +136,11 @@ class HybridSetStore:
     decision: LayoutDecision
     bitset: Optional[I.BlockedBitset]
     device: torch.device
-    # injected word-AND-popcount (the CUDA kernel's wrapper); None -> the
-    # plain PyTorch version
-    word_kernel: Optional[Callable] = None
+    # injected set-pair count of the dense cohort ((block offsets,
+    # block_ids, words, a_slots, b_slots) int32 device tensors -> int32
+    # counts, the CUDA kernel's wrapper); None -> the host block matching
+    # and the plain word AND-popcount (intersect.bitset_intersect_count)
+    pair_kernel: Optional[Callable] = None
     # injected batched uint∩uint kernel ((offsets, neighbors, u, v) int32
     # device tensors -> counts) for short pairs; None -> lockstep search
     uint_kernel: Optional[Callable] = None
@@ -156,7 +158,7 @@ class HybridSetStore:
     @staticmethod
     def build(csr: CSRGraph, device, threshold: float = SIMD_REGISTER_BITS,
               block_bits: int = SIMD_REGISTER_BITS,
-              word_kernel: Optional[Callable] = None,
+              pair_kernel: Optional[Callable] = None,
               uint_kernel: Optional[Callable] = None,
               materialize_kernel: Optional[Callable] = None,
               uint_max_len: int = 256) -> "HybridSetStore":
@@ -165,8 +167,13 @@ class HybridSetStore:
         if len(d.dense_ids):
             bs = I.build_blocked_bitset(csr.offsets, csr.neighbors,
                                         d.dense_ids, csr.n, block_bits)
-        return HybridSetStore(csr, d, bs, torch.device(device), word_kernel,
+        return HybridSetStore(csr, d, bs, torch.device(device), pair_kernel,
                               uint_kernel, materialize_kernel, uint_max_len)
+
+    def _up(self, x: np.ndarray) -> torch.Tensor:
+        """Upload of a host index array as int32."""
+        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
+                               device=self.device)
 
     def _bump(self, key: str, n: int):
         if self.counter is not None:
@@ -174,13 +181,15 @@ class HybridSetStore:
 
     def dev(self, name: str) -> torch.Tensor:
         """Device copy (int32) of one of the store's arrays, uploaded on
-        first use: ``neighbors``/``offsets`` of the CSR, ``block_ids``,
+        first use: ``neighbors``/``offsets`` of the CSR, ``block_offsets``
+        (the bitset's block CSR), ``block_ids``,
         ``words`` (the int32 view of the uint32 blocks) and ``index`` of
         the bitset."""
         t = self._dev.get(name)
         if t is None:
             src = {"neighbors": lambda: self.csr.neighbors,
                    "offsets": lambda: self.csr.offsets,
+                   "block_offsets": lambda: self.bitset.offsets,
                    "block_ids": lambda: self.bitset.block_ids,
                    "words": lambda: self.bitset.words.view(np.int32),
                    "index": lambda: self.bitset.index}[name]()
@@ -211,14 +220,22 @@ class HybridSetStore:
         both_d = ud & vd
         if both_d.any():
             idx = np.flatnonzero(both_d)
-            out[idx] = I.bitset_intersect_count(
-                self.bitset, slot[u[idx]], slot[v[idx]],
-                self.word_kernel or bitset_and_popcount_ref,
-                self.dev("block_ids"), self.dev("words"))
-            # the reference's key for the plain count, kept so that
-            # dispatch summaries compare
-            self._bump("intersect.bitset_kernel" if self.word_kernel
-                       else "intersect.bitset_jnp", len(idx))
+            if self.pair_kernel is not None:
+                # one launch and one fetch of the counts: the block
+                # matching runs in the kernel
+                out[idx] = host_get(self.pair_kernel(
+                    self.dev("block_offsets"), self.dev("block_ids"),
+                    self.dev("words"), self._up(slot[u[idx]]),
+                    self._up(slot[v[idx]])))
+                self._bump("intersect.bitset_kernel", len(idx))
+            else:
+                out[idx] = I.bitset_intersect_count(
+                    self.bitset, slot[u[idx]], slot[v[idx]],
+                    bitset_and_popcount_ref, self.dev("block_ids"),
+                    self.dev("words"))
+                # the reference's key for the plain count, kept so that
+                # dispatch summaries compare
+                self._bump("intersect.bitset_jnp", len(idx))
 
         mixed = ud ^ vd
         if mixed.any():
@@ -249,10 +266,7 @@ class HybridSetStore:
                 idx = np.flatnonzero(short)
                 counts = self.uint_kernel(
                     self.dev("offsets"), self.dev("neighbors"),
-                    torch.as_tensor(u[idx].astype(np.int32),
-                                    device=self.device),
-                    torch.as_tensor(v[idx].astype(np.int32),
-                                    device=self.device))
+                    self._up(u[idx]), self._up(v[idx]))
                 out[idx] = host_get(counts)
                 self._bump("intersect.uint_kernel", len(idx))
             if not short.all():

@@ -1,34 +1,69 @@
-// bitset_intersect: AND + popcount of matched bitset blocks
-// (paper Section 4.2, BITSET ∩ BITSET).
+// bitset_intersect: BITSET ∩ BITSET counts (paper Section 4.2, Figure 6).
 //
-// Replaces the TPU kernel src/repro/kernels/bitset_intersect/kernel.py
-// (bitset_and_popcount_kernel with _kernel and _popcount_u32), which takes
-// the matched block rows as padded copies gathered by ops.py and ANDs them
-// tile by tile on the vector unit with a bit-twiddled popcount.
+// Two entry points:
 //
-// out[i] = sum_k popc(words[pos_a[i]][k] & words[pos_b[i]][k]) over the W
-// words of a block (W = 8 for the 256-bit blocks of the layout store).
+// bitset_pair_count: out[i] = |S_a ∩ S_b| for set pairs (a_slots[i],
+// b_slots[i]) of one blocked bitset: the sum, over the block ids common
+// to both sets' sorted block-id lists, of popc(row_a & row_b).  This is
+// the engine's both-dense count.  It replaces the TPU kernel
+// src/repro/kernels/bitset_intersect/kernel.py:45
+// (bitset_and_popcount_kernel) together with the host block matching of
+// the reference's src/repro/kernels/bitset_intersect/ops.py:75
+// bitset_pair_count: there the host intersects the block-id lists with
+// the uint machinery, an XLA gather copies the matched rows out and pads
+// them to tiles ("per-block scalar gathers are not TPU-idiomatic"), the
+// Pallas kernel ANDs and popcounts the copies, and the host sums the
+// per-block counts into set-pair counts.  Here one warp takes a set pair
+// and does all of it: the matched positions, the per-block counts and
+// their sum never exist in device memory, and the host expands nothing.
 //
-// What bounds it on the H100: bytes.  Per pair it reads two 4-byte indices
-// and two W-word rows and writes one int; the AND and __popc are a few
-// instructions per word.  Design: one thread per pair gathers its two rows
-// straight from the block table (no padded copies in device memory); a
-// 256-bit row is one 32-byte sector, read as two 16-byte vector loads
-// when W is a multiple of 4 and the table is 16-byte aligned.
+// What bounds it on the H100: the block-row gathers through L2.  Per set
+// pair it reads two slot ids, four offsets and both block-id lists once
+// and writes one int (the bytes bound); per matched block it reads two
+// 32-byte rows.  At the full-size graph's 65.5M matched blocks those rows
+// are 4.19 GB of gathers out of a 22.7 MB table that stays in L2, so L2,
+// not device memory, sets the time; the merge steps and the AND/popcount
+// are few instructions an id.  Design:
+//
+// 1. A warp a set pair; the pair's two sorted block-id lists are walked
+//    together in windows of 32 ids, a lane an id of each window.  Each
+//    id is read once, coalesced; the windows sit in the lanes' registers,
+//    and a lane finds its id of a in b's window by five shuffle steps of
+//    a lower bound over the 32 lanes (the window staged across the warp
+//    without shared memory or a barrier).  The window whose last id is
+//    smaller moves on by 32 ids (both on a tie), as in a merge, so no id
+//    is searched from the top of its list and a list of any length (a
+//    hub of 15,625 blocks at n = 4M) takes the same walk; windows whose
+//    id ranges do not overlap skip the search.
+// 2. A lane whose id is in b's window ANDs the two 256-bit rows (two
+//    16-byte loads each, when w is a multiple of 4 and the table 16-byte
+//    aligned) and popcounts them; a shuffle reduction gives the pair's
+//    count and lane 0 writes it.
+// 3. The warps of a block take consecutive set pairs.  The engine's pairs
+//    arrive grouped by their first vertex, so a's list and rows are read
+//    again by neighbouring warps through L1 (the loads are ld.global.nc),
+//    not fetched again from L2.
+//
+// bitset_and_popcount: out[i] = sum_k popc(words[pos_a[i]][k] &
+// words[pos_b[i]][k]) over already matched block pairs, the direct
+// counterpart of the TPU kernel's contract (kernel.py:45), a thread a
+// pair gathering its two rows from the block table itself.  The engine
+// no longer runs it; it is kept as that contract's kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__global__ void bitset_and_popcount_kernel(
-    const uint32_t* __restrict__ words, int32_t w,
-    const int32_t* __restrict__ pos_a, const int32_t* __restrict__ pos_b,
-    int64_t p, int32_t* __restrict__ out) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  const uint32_t* ra = words + (int64_t)__ldg(pos_a + i) * w;
-  const uint32_t* rb = words + (int64_t)__ldg(pos_b + i) * w;
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPairThreads = 256;  // 8 set pairs a block
+
+// popcount of (ra & rb) over the w words of a block row
+__device__ __forceinline__ int32_t and_popc(const uint32_t* __restrict__ ra,
+                                            const uint32_t* __restrict__ rb,
+                                            int32_t w, bool vec) {
   int32_t acc = 0;
-  if ((w & 3) == 0 && (((uintptr_t)words) & 15) == 0) {
+  if (vec) {
     const uint4* va = reinterpret_cast<const uint4*>(ra);
     const uint4* vb = reinterpret_cast<const uint4*>(rb);
     for (int32_t k = 0; k < (w >> 2); ++k) {
@@ -40,7 +75,81 @@ __global__ void bitset_and_popcount_kernel(
   } else {
     for (int32_t k = 0; k < w; ++k) acc += __popc(__ldg(ra + k) & __ldg(rb + k));
   }
-  out[i] = acc;
+  return acc;
+}
+
+__device__ __forceinline__ bool vector_rows(const uint32_t* words, int32_t w) {
+  return (w & 3) == 0 && (((uintptr_t)words) & 15) == 0;
+}
+
+}  // namespace
+
+__global__ void __launch_bounds__(kPairThreads) bitset_pair_count_kernel(
+    const int32_t* __restrict__ offsets, const int32_t* __restrict__ block_ids,
+    const uint32_t* __restrict__ words, int32_t w,
+    const int32_t* __restrict__ a_slots, const int32_t* __restrict__ b_slots,
+    int64_t p, int32_t* __restrict__ out) {
+  const int64_t pair = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (pair >= p) return;  // uniform across the warp
+  const bool vec = vector_rows(words, w);
+  const int32_t sa = __ldg(a_slots + pair), sb = __ldg(b_slots + pair);
+  int32_t i = __ldg(offsets + sa);
+  const int32_t a1 = __ldg(offsets + sa + 1);
+  int32_t j = __ldg(offsets + sb);
+  const int32_t b1 = __ldg(offsets + sb + 1);
+  int32_t acc = 0;
+  while (i < a1 && j < b1) {  // uniform: i, j, a1, b1 are the warp's
+    // ids left in each list (> 0), so no index below passes a1 or b1
+    const int32_t na = a1 - i, nb = b1 - j;
+    const bool in_a = lane < na;
+    const int32_t x = in_a ? __ldg(block_ids + i + lane) : INT32_MAX;
+    const int32_t y = lane < nb ? __ldg(block_ids + j + lane) : INT32_MAX;
+    const int32_t x_last = __shfl_sync(kFull, x, min(31, na - 1));
+    const int32_t y_last = __shfl_sync(kFull, y, min(31, nb - 1));
+    const int32_t x0 = __shfl_sync(kFull, x, 0);
+    const int32_t y0 = __shfl_sync(kFull, y, 0);
+    if (x0 <= y_last && y0 <= x_last) {  // the windows' ranges overlap
+      // k = the number of b's window ids below x (at most 31)
+      int k = 0;
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1)
+        if (__shfl_sync(kFull, y, k + s - 1) < x) k += s;
+      const bool hit = __shfl_sync(kFull, y, k) == x && in_a;
+      if (hit)
+        acc += and_popc(words + (int64_t)(i + lane) * w,
+                        words + (int64_t)(j + k) * w, w, vec);
+    }
+    if (x_last <= y_last) i += min(32, na);
+    if (y_last <= x_last) j += min(32, nb);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(kFull, acc, o);
+  if (lane == 0) out[pair] = acc;
+}
+
+__global__ void bitset_and_popcount_kernel(
+    const uint32_t* __restrict__ words, int32_t w,
+    const int32_t* __restrict__ pos_a, const int32_t* __restrict__ pos_b,
+    int64_t p, int32_t* __restrict__ out) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p) return;
+  out[i] = and_popc(words + (int64_t)__ldg(pos_a + i) * w,
+                    words + (int64_t)__ldg(pos_b + i) * w, w,
+                    vector_rows(words, w));
+}
+
+extern "C" int bitset_pair_count(const int32_t* offsets,
+                                 const int32_t* block_ids,
+                                 const uint32_t* words, int32_t w,
+                                 const int32_t* a_slots,
+                                 const int32_t* b_slots, int64_t p,
+                                 int32_t* out, cudaStream_t stream) {
+  if (p <= 0) return 0;
+  const int64_t blocks = (p * 32 + kPairThreads - 1) / kPairThreads;
+  bitset_pair_count_kernel<<<(unsigned int)blocks, kPairThreads, 0, stream>>>(
+      offsets, block_ids, words, w, a_slots, b_slots, p, out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int bitset_and_popcount(const uint32_t* words, int32_t w,

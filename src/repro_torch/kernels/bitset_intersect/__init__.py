@@ -1,1 +1,2 @@
-from repro_torch.kernels.bitset_intersect.ops import bitset_and_popcount  # noqa: F401
+from repro_torch.kernels.bitset_intersect.ops import (  # noqa: F401
+    bitset_and_popcount, bitset_pair_count)

@@ -85,10 +85,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its live prefix, and that prefix with one probe, and a fifth, one hub
    row of a million candidates;
    ``bitset_intersect``, the fused ``bitset_pair_count``, two launches
-   equal, with five cases from its captured call: as it is, its pairs
+   equal, with six cases from its captured call: as it is, its pairs
    shuffled, the matched-pair ``bitset_and_popcount`` on its matched
-   blocks, that route's host wall, and the largest set against every
-   slot; ``triangle_mm`` against the float64 count), or for
+   blocks, that route's host wall, the largest set against every slot,
+   and every pair by the merge walk; ``triangle_mm`` against the float64 count), or for
    ``spmv_ell`` within 1e-5 of each vertex's absolute sum of the plain
    version's sums taken in float64 (the float32 plain version's own
    distance from them is printed: on the width-1 packing it adds a hub's
@@ -922,9 +922,11 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
     host block matching with one search on the card, the uploads, the
     matched-pair kernel, the fetch of its per-block counts and their
     ``np.add.at``), one reading; (e) the dense set with the most blocks
-    against every dense slot.  Each equal to the plain version, the
-    kernels' two launches equal, timed (CUDA events, L2 flushed, median
-    of 20): printed lines, not table rows."""
+    against every dense slot; (f) the call with every pair through the
+    merge walk (``stage=False``: what the staged lookup buys).  Each
+    equal to the plain version, the kernels' two launches equal, timed
+    (CUDA events, L2 flushed, median of 20): printed lines, not table
+    rows."""
     import types
 
     import numpy as np
@@ -934,26 +936,17 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
     from repro_torch.kernels.common import host_get
     offs, bids, words, sa, sb = args
     want = plain(*args)
-    perm = torch.randperm(int(sa.shape[0]),
-                          generator=torch.Generator().manual_seed(0)
-                          ).to(sa.device)
-    n_slots = int(offs.shape[0]) - 1
-    hub = int(torch.argmax(offs[1:] - offs[:-1]))
-    every = torch.arange(n_slots, dtype=torch.int32, device=sa.device)
-    for label, case in (
-            ("(a) the captured call", args),
-            ("(b) shuffled", (offs, bids, words, sa[perm], sb[perm])),
-            ("(e) the largest set against every slot",
-             (offs, bids, words, torch.full_like(every, hub), every))):
-        got = bitset_ops.bitset_pair_count(*case)
-        check(torch.equal(got, plain(*case)),
+
+    def fused(label, case, stage=True, want_case=None):
+        got = bitset_ops.bitset_pair_count(*case, stage=stage)
+        check(torch.equal(got, plain(*case) if want_case is None
+                          else want_case),
               f"bitset_pair_count, {label}: differs from its plain version")
-        check(torch.equal(got, bitset_ops.bitset_pair_count(*case)),
+        check(torch.equal(got, bitset_ops.bitset_pair_count(*case,
+                                                            stage=stage)),
               f"bitset_pair_count, {label}: two launches differ")
-        if label.startswith("(b)"):
-            check(torch.equal(got, want[perm]),
-                  "bitset_pair_count: shuffled pairs give other counts")
-        ms = time_ms(lambda: bitset_ops.bitset_pair_count(*case), 20)
+        ms = time_ms(lambda: bitset_ops.bitset_pair_count(*case, stage=stage),
+                     20)
         work, moved, ops = pair_count_work(case, torch)
         log(f"[kernel] bitset_pair_count, {label}: {work}; equal to the "
             f"plain version, two launches equal; kernel {ms:.4f} ms (CUDA "
@@ -961,6 +954,13 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
             f"{max(moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3:.4f}"
             f" ms (bytes {moved / HBM_BYTES_PER_S * 1e3:.4f}, operations "
             f"{ops / INT32_OPS_PER_S * 1e3:.4f})")
+
+    fused("(a) the captured call", args, want_case=want)
+    perm = torch.randperm(int(sa.shape[0]),
+                          generator=torch.Generator().manual_seed(0)
+                          ).to(sa.device)
+    fused("(b) shuffled", (offs, bids, words, sa[perm], sb[perm]),
+          want_case=want[perm])
     pid, pos_a, pos_b = match_blocks_ref(offs, bids, sa, sb)
     pa, pb = pos_a.to(torch.int32), pos_b.to(torch.int32)
     per_block = bitset_ops.bitset_and_popcount(words, pa, pb)
@@ -994,6 +994,13 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
     log(f"[kernel] bitset_pair_count, (d) the matched-pair route's host "
         f"wall for the call (block matching, uploads, kernel, fetch, "
         f"np.add.at): {wall:.4f} s (host clock, one reading)")
+    every = torch.arange(int(offs.shape[0]) - 1, dtype=torch.int32,
+                         device=sa.device)
+    hub = int(torch.argmax(offs[1:] - offs[:-1]))
+    fused("(e) the largest set against every slot",
+          (offs, bids, words, torch.full_like(every, hub), every))
+    fused("(f) the call, every pair by the merge walk", args, stage=False,
+          want_case=want)
 
 
 def ptxas_lines(report):

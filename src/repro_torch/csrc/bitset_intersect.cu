@@ -17,32 +17,41 @@
 // and does all of it: the matched positions, the per-block counts and
 // their sum never exist in device memory, and the host expands nothing.
 //
-// What bounds it on the H100: the block-row gathers through L2.  Per set
-// pair it reads two slot ids, four offsets and both block-id lists once
-// and writes one int (the bytes bound); per matched block it reads two
-// 32-byte rows.  At the full-size graph's 65.5M matched blocks those rows
-// are 4.19 GB of gathers out of a 22.7 MB table that stays in L2, so L2,
-// not device memory, sets the time; the merge steps and the AND/popcount
-// are few instructions an id.  Design:
+// What bounds it on the H100: the block matching's latency, then the
+// row gathers through L2.  Per set pair it reads two slot ids, four
+// offsets and both block-id lists once and writes one int (the bytes
+// bound); per matched block it reads two 32-byte rows.  At the full-size
+// graph's call (745,312 pairs) the lists hold 410M ids and 65.5M blocks
+// match: the rows are 4.19 GB of gathers out of a 22.7 MB table that
+// stays in L2, the ids six for every matched block.  Design:
 //
-// 1. A warp a set pair; the pair's two sorted block-id lists are walked
-//    together in windows of 32 ids, a lane an id of each window.  Each
-//    id is read once, coalesced; the windows sit in the lanes' registers,
-//    and a lane finds its id of a in b's window by five shuffle steps of
-//    a lower bound over the 32 lanes (the window staged across the warp
-//    without shared memory or a barrier).  The window whose last id is
-//    smaller moves on by 32 ids (both on a tie), as in a merge, so no id
-//    is searched from the top of its list and a list of any length (a
-//    hub of 15,625 blocks at n = 4M) takes the same walk; windows whose
-//    id ranges do not overlap skip the search.
-// 2. A lane whose id is in b's window ANDs the two 256-bit rows (two
-//    16-byte loads each, when w is a multiple of 4 and the table 16-byte
-//    aligned) and popcounts them; a shuffle reduction gives the pair's
-//    count and lane 0 writes it.
-// 3. The warps of a block take consecutive set pairs.  The engine's pairs
-//    arrive grouped by their first vertex, so a's list and rows are read
-//    again by neighbouring warps through L1 (the loads are ld.global.nc),
-//    not fetched again from L2.
+// 1. A warp takes up to kPairsPerWarp consecutive set pairs.  The
+//    engine's pairs arrive in runs that share b (the fold's pairs are
+//    sorted by their second vertex), so the warp stages one set and keeps
+//    it while its pairs hold it: the set it staged last if the pair holds
+//    it, else b.  The other set is walked.
+// 2. Staged lookup: when the staged set's block ids lie below kStageIds
+//    (8,192 block ids, 2,097,152 ids at 256-bit blocks), the warp writes
+//    it as a bitmap over the block-id range in shared memory with each
+//    32-bit word's exclusive rank (2 KB a warp): 32 ids a step, the lanes
+//    of a word OR-ing their bits by shuffles before one shared atomic,
+//    then a warp scan of the words' popcounts.  The walked set's ids, two
+//    windows of 32 a step, each read once and coalesced, are looked up: a
+//    bit test finds the common ids, the word's rank plus a popcount gives
+//    the id's row in the staged set, and the walk stops at the staged
+//    set's last id.  No id is searched.
+// 3. Merge walk, when the set to stage has block ids beyond the staging
+//    (a hub of 15,625 blocks at n = 4M ids): the two sorted lists are walked
+//    together in windows of 32 ids, a lane an id of each, held in
+//    registers; a lane finds its id of a in b's window by five shuffle
+//    steps of a lower bound over the lanes, and the window whose last id
+//    is smaller moves on (both on a tie), as in a merge, so no id is
+//    searched from the top of its list; windows whose ranges do not
+//    overlap skip the search.  The same kernel, the same counts.
+// 4. A lane that finds a common id ANDs the two 256-bit rows (two 16-byte
+//    loads each, when w is a multiple of 4 and the table 16-byte aligned)
+//    and popcounts them; a shuffle reduction gives the pair's count and
+//    lane 0 writes it.
 //
 // bitset_and_popcount: out[i] = sum_k popc(words[pos_a[i]][k] &
 // words[pos_b[i]][k]) over already matched block pairs, the direct
@@ -56,7 +65,16 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kPairThreads = 256;  // 8 set pairs a block
+constexpr int kPairThreads = 256;  // 8 warps a block
+// a's staged bitmap covers block ids below kStageIds: 2 KB a warp
+constexpr int32_t kStageWords = 256;
+constexpr int32_t kStageIds = kStageWords * 32;
+// windows of 32 walked ids loaded together a lookup step
+constexpr int kWindows = 2;
+// a warp takes up to kPairsPerWarp consecutive pairs while the launch
+// still gives every SM of an H100 its 64 warps (132 * 64)
+constexpr int32_t kPairsPerWarp = 4;
+constexpr int64_t kResidentWarps = 132 * 64;
 
 // popcount of (ra & rb) over the w words of a block row
 __device__ __forceinline__ int32_t and_popc(const uint32_t* __restrict__ ra,
@@ -82,22 +100,11 @@ __device__ __forceinline__ bool vector_rows(const uint32_t* words, int32_t w) {
   return (w & 3) == 0 && (((uintptr_t)words) & 15) == 0;
 }
 
-}  // namespace
-
-__global__ void __launch_bounds__(kPairThreads) bitset_pair_count_kernel(
-    const int32_t* __restrict__ offsets, const int32_t* __restrict__ block_ids,
-    const uint32_t* __restrict__ words, int32_t w,
-    const int32_t* __restrict__ a_slots, const int32_t* __restrict__ b_slots,
-    int64_t p, int32_t* __restrict__ out) {
-  const int64_t pair = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (pair >= p) return;  // uniform across the warp
-  const bool vec = vector_rows(words, w);
-  const int32_t sa = __ldg(a_slots + pair), sb = __ldg(b_slots + pair);
-  int32_t i = __ldg(offsets + sa);
-  const int32_t a1 = __ldg(offsets + sa + 1);
-  int32_t j = __ldg(offsets + sb);
-  const int32_t b1 = __ldg(offsets + sb + 1);
+// The pair's count by the merge walk of both block-id lists (design 1).
+__device__ __forceinline__ int32_t walk_count(
+    const int32_t* __restrict__ block_ids, const uint32_t* __restrict__ words,
+    int32_t w, bool vec, int32_t i, int32_t a1, int32_t j, int32_t b1,
+    int lane) {
   int32_t acc = 0;
   while (i < a1 && j < b1) {  // uniform: i, j, a1, b1 are the warp's
     // ids left in each list (> 0), so no index below passes a1 or b1
@@ -105,27 +112,155 @@ __global__ void __launch_bounds__(kPairThreads) bitset_pair_count_kernel(
     const bool in_a = lane < na;
     const int32_t x = in_a ? __ldg(block_ids + i + lane) : INT32_MAX;
     const int32_t y = lane < nb ? __ldg(block_ids + j + lane) : INT32_MAX;
+    // k = the number of b's window ids below x (at most 31)
+    int k = 0;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+      if (__shfl_sync(kFull, y, k + s - 1) < x) k += s;
+    if (__shfl_sync(kFull, y, k) == x && in_a)
+      acc += and_popc(words + (int64_t)(i + lane) * w,
+                      words + (int64_t)(j + k) * w, w, vec);
     const int32_t x_last = __shfl_sync(kFull, x, min(31, na - 1));
     const int32_t y_last = __shfl_sync(kFull, y, min(31, nb - 1));
-    const int32_t x0 = __shfl_sync(kFull, x, 0);
-    const int32_t y0 = __shfl_sync(kFull, y, 0);
-    if (x0 <= y_last && y0 <= x_last) {  // the windows' ranges overlap
-      // k = the number of b's window ids below x (at most 31)
-      int k = 0;
-#pragma unroll
-      for (int s = 16; s > 0; s >>= 1)
-        if (__shfl_sync(kFull, y, k + s - 1) < x) k += s;
-      const bool hit = __shfl_sync(kFull, y, k) == x && in_a;
-      if (hit)
-        acc += and_popc(words + (int64_t)(i + lane) * w,
-                        words + (int64_t)(j + k) * w, w, vec);
-    }
     if (x_last <= y_last) i += min(32, na);
     if (y_last <= x_last) j += min(32, nb);
   }
+  return acc;
+}
+
+// Stage the block ids [s0, s1) of one set, all below kStageIds, as a
+// bitmap over the block-id range with each word's exclusive rank: words
+// [0, n_words).  The lanes of a window that share a bitmap word (the ids
+// are sorted, so they are adjacent) OR their bits together first, and the
+// last of them ORs the word in: one shared atomic a word, not a lane.
+__device__ __forceinline__ void stage_set(
+    const int32_t* __restrict__ block_ids, int32_t s0, int32_t s1,
+    int32_t n_words, uint32_t* bits, int32_t* rank, int lane) {
+  __syncwarp();  // the previous pair's lookups are done
+  for (int32_t k = lane; k < n_words; k += 32) bits[k] = 0u;
+  __syncwarp();
+  for (int32_t k = 0; k < s1 - s0; k += 32) {  // uniform
+    const bool in = lane < s1 - s0 - k;
+    const int32_t id = in ? __ldg(block_ids + s0 + k + lane) : -1;
+    const int32_t word = id >> 5;
+    uint32_t m = in ? 1u << (id & 31) : 0u;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(kFull, acc, o);
-  if (lane == 0) out[pair] = acc;
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t t = __shfl_up_sync(kFull, m, o);
+      const int32_t w_up = __shfl_up_sync(kFull, word, o);
+      if (lane >= o && w_up == word) m |= t;
+    }
+    const int32_t w_next = __shfl_down_sync(kFull, word, 1);
+    if (in && (lane == 31 || w_next != word)) atomicOr(bits + word, m);
+  }
+  __syncwarp();
+  int32_t carry = 0;
+  for (int32_t base = 0; base < n_words; base += 32) {  // uniform
+    const int32_t k = base + lane;
+    const int32_t c = k < n_words ? __popc(bits[k]) : 0;
+    int32_t incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (k < n_words) rank[k] = carry + incl - c;
+    carry += __shfl_sync(kFull, incl, 31);
+  }
+  __syncwarp();
+}
+
+// The pair's count by the walked set's ids [j, e) looked up in the staged
+// set's bitmap (rows from s0, last id s_last): kWindows windows of 32 ids
+// a step, loaded together, up to the staged set's last id.
+__device__ __forceinline__ int32_t lookup_count(
+    const int32_t* __restrict__ block_ids, const uint32_t* __restrict__ words,
+    int32_t w, bool vec, int32_t s0, int32_t s_last, int32_t j, int32_t e,
+    const uint32_t* bits, const int32_t* rank, int lane) {
+  int32_t acc = 0;
+  for (; j < e; j += min(32 * kWindows, e - j)) {  // uniform
+    int32_t y[kWindows];
+#pragma unroll
+    for (int u = 0; u < kWindows; ++u)
+      y[u] = lane + 32 * u < e - j ? __ldg(block_ids + j + 32 * u + lane)
+                                   : INT32_MAX;
+    int32_t row[kWindows];  // the id's row in the staged set, or -1
+#pragma unroll
+    for (int u = 0; u < kWindows; ++u) {
+      row[u] = -1;
+      if (y[u] <= s_last) {
+        const uint32_t word = bits[y[u] >> 5];
+        const int32_t bit = y[u] & 31;
+        if ((word >> bit) & 1u)
+          row[u] = s0 + rank[y[u] >> 5] + __popc(word & ((1u << bit) - 1u));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kWindows; ++u)
+      if (row[u] >= 0)
+        acc += and_popc(words + (int64_t)row[u] * w,
+                        words + (int64_t)(j + 32 * u + lane) * w, w, vec);
+    // the walked ids pass the staged set's
+    if (__shfl_sync(kFull, y[kWindows - 1], 31) > s_last) break;
+  }
+  return acc;
+}
+
+}  // namespace
+
+// kW: the words a block row, two 16-byte loads a row at kW = 8 (the
+// engine's 256-bit blocks, a 16-byte aligned table), or 0 for any other
+// width, read at run time, a word at a time
+template <int kW>
+__global__ void __launch_bounds__(kPairThreads) bitset_pair_count_kernel(
+    const int32_t* __restrict__ offsets, const int32_t* __restrict__ block_ids,
+    const uint32_t* __restrict__ words, int32_t w_arg,
+    const int32_t* __restrict__ a_slots, const int32_t* __restrict__ b_slots,
+    int32_t p, int32_t pairs_per_warp, int32_t stage,
+    int32_t* __restrict__ out) {
+  __shared__ uint32_t s_bits[kPairThreads / 32][kStageWords];
+  __shared__ int32_t s_rank[kPairThreads / 32][kStageWords];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // p < 2^31 (the wrapper checks), so pair indices are int32
+  const int64_t first64 =
+      (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * pairs_per_warp;
+  if (first64 >= p) return;  // uniform across the warp
+  const int32_t first = (int32_t)first64;
+  const int32_t last = min(first, p - pairs_per_warp) + pairs_per_warp;
+  const int32_t w = kW ? kW : w_arg;
+  const bool vec = kW != 0;
+  uint32_t* bits = s_bits[warp];
+  int32_t* rank = s_rank[warp];
+  int32_t staged = -1;  // the slot whose list the bitmap holds
+  for (int32_t pair = first; pair < last; ++pair) {  // uniform
+    // s: the set to stage (the staged one if the pair holds it, else b,
+    // which the engine's pairs share in runs); t: the set to walk
+    int32_t ss = __ldg(b_slots + pair), ts = __ldg(a_slots + pair);
+    if (ts == staged) {
+      const int32_t x = ss;
+      ss = ts;
+      ts = x;
+    }
+    const int32_t s0 = __ldg(offsets + ss), s1 = __ldg(offsets + ss + 1);
+    const int32_t t0 = __ldg(offsets + ts), t1 = __ldg(offsets + ts + 1);
+    int32_t acc = 0;
+    if (s0 < s1 && t0 < t1) {
+      const int32_t s_last = __ldg(block_ids + s1 - 1);
+      if (stage && s_last < kStageIds) {
+        if (ss != staged) {
+          stage_set(block_ids, s0, s1, (s_last >> 5) + 1, bits, rank, lane);
+          staged = ss;
+        }
+        acc = lookup_count(block_ids, words, w, vec, s0, s_last, t0, t1, bits,
+                           rank, lane);
+      } else {
+        acc = walk_count(block_ids, words, w, vec, s0, s1, t0, t1, lane);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(kFull, acc, o);
+    if (lane == 0) out[pair] = acc;
+  }
 }
 
 __global__ void bitset_and_popcount_kernel(
@@ -144,11 +279,24 @@ extern "C" int bitset_pair_count(const int32_t* offsets,
                                  const uint32_t* words, int32_t w,
                                  const int32_t* a_slots,
                                  const int32_t* b_slots, int64_t p,
-                                 int32_t* out, cudaStream_t stream) {
+                                 int32_t stage, int32_t* out,
+                                 cudaStream_t stream) {
   if (p <= 0) return 0;
-  const int64_t blocks = (p * 32 + kPairThreads - 1) / kPairThreads;
-  bitset_pair_count_kernel<<<(unsigned int)blocks, kPairThreads, 0, stream>>>(
-      offsets, block_ids, words, w, a_slots, b_slots, p, out);
+  if (p > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int32_t per_warp = (int32_t)max(
+      (int64_t)1, min((int64_t)kPairsPerWarp, p / kResidentWarps));
+  const int64_t warps = (p + per_warp - 1) / per_warp;
+  const int64_t blocks = (warps * 32 + kPairThreads - 1) / kPairThreads;
+  if (w == 8 && (((uintptr_t)words) & 15) == 0)
+    bitset_pair_count_kernel<8><<<(unsigned int)blocks, kPairThreads, 0,
+                                   stream>>>(offsets, block_ids, words, w,
+                                             a_slots, b_slots, (int32_t)p,
+                                             per_warp, stage, out);
+  else
+    bitset_pair_count_kernel<0><<<(unsigned int)blocks, kPairThreads, 0,
+                                   stream>>>(offsets, block_ids, words, w,
+                                             a_slots, b_slots, (int32_t)p,
+                                             per_warp, stage, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each integer kernel bit-equal to
-its plain PyTorch version (``materialize`` up to its total, ``triangle_mm``
+its plain PyTorch version (``bitset_pair_count`` staged and by its merge
+walk alone, on sets inside and beyond its shared-memory staging) (``materialize`` up to its total, ``triangle_mm``
 to the plain float64 count) (``spmv_ell`` within 1e-5 of each vertex's
 absolute sum of the plain version's sums in float64, and bit-equal to
 itself from launch to launch; ``fm_interaction`` within 1e-5
@@ -18,7 +19,8 @@ from repro_torch.core.engine import Engine
 from repro_torch.data.graphs import edge_list, powerlaw_graph
 from repro_torch.kernels import common
 from repro_torch.kernels.bitset_intersect import ops as bitset_ops
-from repro_torch.kernels.bitset_intersect.ref import bitset_and_popcount_ref
+from repro_torch.kernels.bitset_intersect.ref import (bitset_and_popcount_ref,
+                                                      bitset_pair_count_ref)
 from repro_torch.kernels.fm_interaction import ops as fm_kernel_ops
 from repro_torch.kernels.fm_interaction.ref import (fm_interaction_ref,
                                                     fm_interaction_scale)
@@ -61,6 +63,105 @@ def test_bitset_kernel_matches_plain(dev, seed):
     got = bitset_ops.bitset_and_popcount(*args)
     assert common.LAUNCHES["bitset_intersect"] == before + 1
     assert torch.equal(got, bitset_and_popcount_ref(*args))
+
+
+def _pair_bitset(sets, n):
+    """A blocked bitset over explicit sets (slot i = set i)."""
+    from repro_torch.core.intersect import build_blocked_bitset
+    offs = np.concatenate([[0], np.cumsum([len(x) for x in sets])])
+    nbr = np.concatenate([np.sort(x) for x in sets]).astype(np.int32)
+    return build_blocked_bitset(offs, nbr, np.arange(len(sets)), n)
+
+
+def _pair_args(bs, a, b, dev):
+    return (t32(bs.offsets, dev), t32(bs.block_ids, dev),
+            t32(bs.words.view(np.int32), dev), t32(a, dev), t32(b, dev))
+
+
+def _check_pair_count(args):
+    """The set-pair kernel staged and by the walk alone, each one launch,
+    equal to the plain version and to each other."""
+    want = bitset_pair_count_ref(*args)
+    for stage in (True, False):
+        before = common.LAUNCHES["bitset_intersect"]
+        got = bitset_ops.bitset_pair_count(*args, stage=stage)
+        torch.cuda.synchronize()
+        assert common.LAUNCHES["bitset_intersect"] == before + 1
+        assert torch.equal(got, want), stage
+    return want
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bitset_pair_count_matches_plain(dev, seed):
+    """Seeded sets of 1 to 3,000 ids over 20k to 3M ids (block ids inside
+    and beyond the kernel's staging range), pairs in runs sharing b and
+    shuffled, a set with itself."""
+    r = np.random.default_rng(seed)
+    n = (20_000, 200_000, 2_000_000, 3_000_000)[seed]
+    sets = [r.choice(n, size=int(r.integers(1, 3000)), replace=False)
+            for _ in range(200)]
+    bs = _pair_bitset(sets, n)
+    b = np.repeat(r.integers(0, 200, 250), 20)   # runs sharing b
+    a = r.integers(0, 200, len(b))
+    a[:200], b[:200] = np.arange(200), np.arange(200)
+    want = _check_pair_count(_pair_args(bs, a, b, dev))
+    truth = [len(np.intersect1d(sets[i], sets[j])) for i, j in
+             zip(a[:300], b[:300])]
+    np.testing.assert_array_equal(want.cpu().numpy()[:300], truth)
+    perm = r.permutation(len(a))
+    _check_pair_count(_pair_args(bs, a[perm], b[perm], dev))
+
+
+@pytest.mark.parametrize("block_bits", [64, 128, 512])
+def test_bitset_pair_count_other_block_widths(dev, block_bits):
+    """Blocks of other widths than the engine's 256 bits (rows read a word
+    at a time)."""
+    from repro_torch.core.intersect import build_blocked_bitset
+    r = np.random.default_rng(block_bits)
+    n = 100_000
+    sets = [np.sort(r.choice(n, size=int(r.integers(1, 3000)),
+                             replace=False)) for _ in range(60)]
+    offs = np.concatenate([[0], np.cumsum([len(x) for x in sets])])
+    bs = build_blocked_bitset(offs, np.concatenate(sets).astype(np.int32),
+                              np.arange(60), n, block_bits)
+    a, b = r.integers(0, 60, (2, 2000))
+    want = _check_pair_count(_pair_args(bs, a, b, dev)).cpu().numpy()
+    np.testing.assert_array_equal(
+        want[:200], [len(np.intersect1d(sets[i], sets[j]))
+                     for i, j in zip(a[:200], b[:200])])
+
+
+def test_bitset_pair_count_hub_beyond_staging(dev):
+    """n = 4,000,000 ids and a hub with an id in every one of its 15,625
+    blocks, more than the kernel's shared-memory staging holds: the hub
+    against every set on either side, and against itself."""
+    r = np.random.default_rng(0)
+    n = 4_000_000
+    hub = np.unique(np.concatenate([np.arange(0, n, 256),
+                                    r.choice(n, 100_000, replace=False)]))
+    sets = [hub] + [r.choice(m, size=int(r.integers(1, 20_000)),
+                             replace=False)
+                    for m in [n] * 40 + [1_000_000] * 23]
+    bs = _pair_bitset(sets, n)
+    assert int(bs.offsets[1] - bs.offsets[0]) == 15_625
+    k = len(sets)
+    a = np.concatenate([np.zeros(k, np.int64), np.arange(k), [0]])
+    b = np.concatenate([np.arange(k), np.zeros(k, np.int64), [0]])
+    want = _check_pair_count(_pair_args(bs, a, b, dev))
+    got = want.cpu().numpy()
+    assert got[-1] == len(hub)
+    for i in (1, 2, 41, 63):
+        assert got[i] == got[k + i] == len(np.intersect1d(hub, sets[i]))
+
+
+def test_bitset_pair_count_empty_call(dev):
+    bs = _pair_bitset([np.arange(5), np.arange(3, 300)], 512)
+    args = _pair_args(bs, np.zeros(0, np.int64), np.zeros(0, np.int64), dev)
+    before = common.LAUNCHES["bitset_intersect"]
+    got = bitset_ops.bitset_pair_count(*args)
+    assert got.shape == (0,) and got.dtype == torch.int32
+    assert got.device.type == "cuda"
+    assert common.LAUNCHES["bitset_intersect"] == before
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -314,6 +415,8 @@ def test_cuda_tensor_never_takes_the_plain_version(dev):
     pos = torch.zeros(3, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
         bitset_ops.bitset_and_popcount(words, pos, pos)
+    with pytest.raises(TypeError):
+        bitset_ops.bitset_pair_count(pos, pos, words, pos, pos)
     with pytest.raises(TypeError):
         mat_ops.materialize(words, pos, pos, pos, pos, pos, 8)
     # the plain version takes blocks of any width; the kernel refuses

@@ -2,8 +2,9 @@
 version (the wrapper's CPU path) must equal the JAX package's ``ops``
 entry point (Pallas in interpret mode) exactly — every output is int32 —
 on the JAX kernels' own contract inputs and on seeded random cases.
-Also: the wrappers' argument checks, and that the CPU path launches no
-kernel."""
+The set-pair count ``bitset_pair_count`` is held against the JAX
+package's batched entry point of the same name.  Also: the wrappers'
+argument checks, and that the CPU path launches no kernel."""
 import numpy as np
 import pytest
 import torch
@@ -52,6 +53,38 @@ def test_bitset_random(seed):
     pb = r.integers(0, n_blocks, p)
     got, want = _bitset_both(words, pa, pb)
     np.testing.assert_array_equal(got, want)
+
+
+def _random_bitset(r, n, n_sets):
+    """Both packages' blocked bitsets over ``n_sets`` random sets of ids
+    below ``n``, of 1 to 1,500 ids each (1 to n/256 blocks)."""
+    from repro.core.intersect import build_blocked_bitset as j_build
+    from repro_torch.core.intersect import build_blocked_bitset as t_build
+    sets = [np.sort(r.choice(n, size=int(r.integers(1, 1500)),
+                             replace=False)) for _ in range(n_sets)]
+    offs = np.concatenate([[0], np.cumsum([len(x) for x in sets])])
+    nbr = np.concatenate(sets).astype(np.int32)
+    ids = np.arange(n_sets)
+    return j_build(offs, nbr, ids, n), t_build(offs, nbr, ids, n)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_bitset_pair_count_random(seed):
+    """The set-pair count's plain version equal, exactly, to the
+    reference's ``bitset_pair_count`` (block matching, then the Pallas
+    kernel in interpret mode) on seeded random bitsets."""
+    r = np.random.default_rng(seed)
+    n = int(r.choice([4096, 20_000, 100_000]))
+    jb, tb = _random_bitset(r, n, 40)
+    p = int(r.integers(1, 300))
+    a, b = r.integers(0, 40, (2, p))
+    want = np.asarray(jax_bitset.bitset_pair_count(jb, a, b, interpret=True))
+    got = bitset_ops.bitset_pair_count(
+        t32(tb.offsets), t32(tb.block_ids), t32(tb.words.view(np.int32)),
+        t32(a), t32(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.sum() > 0
 
 
 # -------------------------------------------------------------- uint_intersect
@@ -198,14 +231,30 @@ def test_cpu_path_launches_no_kernel():
     words, pa, pb = jax_bitset._contract_inputs()
     bitset_ops.bitset_and_popcount(t32(words.view(np.int32)), t32(pa),
                                    t32(pb))
+    _, tb = _random_bitset(np.random.default_rng(0), 4096, 4)
+    bitset_ops.bitset_pair_count(t32(tb.offsets), t32(tb.block_ids),
+                                 t32(tb.words.view(np.int32)), t32([0, 1]),
+                                 t32([2, 3]))
     assert sum(common.LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "rank"])
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "rank",
+                                  "pair_dtype", "pair_shape", "pair_blocks"])
 def test_wrappers_reject_bad_arguments(case):
     words = torch.zeros((4, 8), dtype=torch.int32)
     pos = torch.zeros(5, dtype=torch.int32)
-    if case == "dtype":
+    offs = torch.tensor([0, 2, 4], dtype=torch.int32)
+    bids = torch.zeros(4, dtype=torch.int32)
+    if case == "pair_dtype":
+        with pytest.raises(TypeError):
+            bitset_ops.bitset_pair_count(offs, bids, words, pos.long(), pos)
+    elif case == "pair_shape":
+        with pytest.raises(ValueError):
+            bitset_ops.bitset_pair_count(offs, bids, words, pos, pos[:3])
+    elif case == "pair_blocks":
+        with pytest.raises(ValueError):
+            bitset_ops.bitset_pair_count(offs, bids[:3], words, pos, pos)
+    elif case == "dtype":
         with pytest.raises(TypeError):
             bitset_ops.bitset_and_popcount(words, pos.long(), pos)
     elif case == "shape":

@@ -85,10 +85,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its live prefix, and that prefix with one probe, and a fifth, one hub
    row of a million candidates;
    ``bitset_intersect``, the fused ``bitset_pair_count``, two launches
-   equal, with six cases from its captured call: as it is, its pairs
+   equal, with five cases from its captured call: as it is, its pairs
    shuffled, the matched-pair ``bitset_and_popcount`` on its matched
-   blocks, that route's host wall, the largest set against every slot,
-   and every pair by the merge walk; ``triangle_mm`` against the float64 count), or for
+   blocks, that route's host wall, and the largest set against every
+   slot; ``triangle_mm`` against the float64 count), or for
    ``spmv_ell`` within 1e-5 of each vertex's absolute sum of the plain
    version's sums taken in float64 (the float32 plain version's own
    distance from them is printed: on the width-1 packing it adds a hub's
@@ -542,7 +542,8 @@ def same_result(got, want):
 
 def materialize_path(src, dst, torch):
     """Phase 5: triangle-shaped queries that materialize ``z`` on the
-    card.  Returns the launch counts of this path."""
+    card.  Returns the launch counts of this path and the full-size
+    engine (for the profile)."""
     from repro_torch.core.engine import Engine
     from repro_torch.core import workload as W
     from repro_torch.core.executor import BagResultCache
@@ -620,9 +621,7 @@ def materialize_path(src, dst, torch):
               f"{name}: no pair took the materialize kernel")
     launches = dict(common.LAUNCHES)
     log(f"[materialize] launches {json.dumps(launches)}")
-    if "--profile" in sys.argv[1:]:
-        profile_query(eng, MAT_QUERIES[0][1], BagResultCache, torch)
-    return launches
+    return launches, eng
 
 
 def triangle_path(torch):
@@ -889,7 +888,8 @@ def fold_cases(args, fill_ops, plain, time_ms, torch):
 def pair_count_work(args, torch):
     """What one ``bitset_pair_count`` call needs: its set pairs P, the
     ids of both lists of every pair (the merge steps), the matched block
-    pairs, the slots it touches and their blocks; its bytes (the slot
+    pairs, the slots it touches and their blocks, and the runs of
+    consecutive pairs that share ``a`` and ``b``; its bytes (the slot
     ids and the count of each pair, two offsets a touched slot, each
     touched block's id and 32-byte row once) and its int32 operations (a
     merge step an id, an AND, a popcount and an add a word of each
@@ -906,9 +906,11 @@ def pair_count_work(args, torch):
     w = int(words.shape[1])
     moved = 12 * p + 8 * int(slots.numel()) + (4 + 4 * w) * touched
     ops = ids + 3 * w * matched
+    runs_a = int((sa[1:] != sa[:-1]).sum()) + min(p, 1)
+    runs_b = int((sb[1:] != sb[:-1]).sum()) + min(p, 1)
     return (f"set_pairs={p} ids={ids} matched_blocks={matched} "
-            f"touched_slots={int(slots.numel())} touched_blocks={touched}",
-            moved, ops)
+            f"touched_slots={int(slots.numel())} touched_blocks={touched} "
+            f"runs_of_a={runs_a} runs_of_b={runs_b}", moved, ops)
 
 
 def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
@@ -922,9 +924,7 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
     host block matching with one search on the card, the uploads, the
     matched-pair kernel, the fetch of its per-block counts and their
     ``np.add.at``), one reading; (e) the dense set with the most blocks
-    against every dense slot; (f) the call with every pair through the
-    merge walk (``stage=False``: what the staged lookup buys).  Each
-    equal to the plain version, the kernels' two launches equal, timed
+    against every dense slot.  Each equal to the plain version, the kernels' two launches equal, timed
     (CUDA events, L2 flushed, median of 20): printed lines, not table
     rows."""
     import types
@@ -937,16 +937,14 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
     offs, bids, words, sa, sb = args
     want = plain(*args)
 
-    def fused(label, case, stage=True, want_case=None):
-        got = bitset_ops.bitset_pair_count(*case, stage=stage)
+    def fused(label, case, want_case=None):
+        got = bitset_ops.bitset_pair_count(*case)
         check(torch.equal(got, plain(*case) if want_case is None
                           else want_case),
               f"bitset_pair_count, {label}: differs from its plain version")
-        check(torch.equal(got, bitset_ops.bitset_pair_count(*case,
-                                                            stage=stage)),
+        check(torch.equal(got, bitset_ops.bitset_pair_count(*case)),
               f"bitset_pair_count, {label}: two launches differ")
-        ms = time_ms(lambda: bitset_ops.bitset_pair_count(*case, stage=stage),
-                     20)
+        ms = time_ms(lambda: bitset_ops.bitset_pair_count(*case), 20)
         work, moved, ops = pair_count_work(case, torch)
         log(f"[kernel] bitset_pair_count, {label}: {work}; equal to the "
             f"plain version, two launches equal; kernel {ms:.4f} ms (CUDA "
@@ -999,8 +997,6 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
     hub = int(torch.argmax(offs[1:] - offs[:-1]))
     fused("(e) the largest set against every slot",
           (offs, bids, words, torch.full_like(every, hub), every))
-    fused("(f) the call, every pair by the merge walk", args, stage=False,
-          want_case=want)
 
 
 def ptxas_lines(report):
@@ -1311,13 +1307,17 @@ def main():
     # ------------------------------------------ 5. materializing path
     captures["materialize"] = Capture(
         mat_ops, "materialize", lambda w, b, i, pa, *a: int(pa.shape[0]))
-    mat_launches = materialize_path(src, dst, torch)
+    mat_launches, mat_eng = materialize_path(src, dst, torch)
     captures["materialize"].restore()
     for name in MAT_KERNELS:
         check(mat_launches.get(name, 0) > 0, f"kernel {name} never launched")
     check(mat_launches["materialize"] == captures["materialize"].calls,
           f"materialize: {mat_launches['materialize']} launches for "
           f"{captures['materialize'].calls} calls with pairs, not one a call")
+    if "--profile" in sys.argv[1:]:
+        # after the capture: the profiled query's launches are not the path's
+        profile_query(mat_eng, MAT_QUERIES[0][1], BagResultCache, torch)
+    del mat_eng
 
     # ----------------------------------------- 6. dense triangle path
     captures["triangle_mm"] = Capture(tri_ops, "triangle_mm",

@@ -216,8 +216,7 @@ __global__ void __launch_bounds__(kPairThreads) bitset_pair_count_kernel(
     const int32_t* __restrict__ offsets, const int32_t* __restrict__ block_ids,
     const uint32_t* __restrict__ words, int32_t w_arg,
     const int32_t* __restrict__ a_slots, const int32_t* __restrict__ b_slots,
-    int32_t p, int32_t pairs_per_warp, int32_t stage,
-    int32_t* __restrict__ out) {
+    int32_t p, int32_t pairs_per_warp, int32_t* __restrict__ out) {
   __shared__ uint32_t s_bits[kPairThreads / 32][kStageWords];
   __shared__ int32_t s_rank[kPairThreads / 32][kStageWords];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -246,7 +245,7 @@ __global__ void __launch_bounds__(kPairThreads) bitset_pair_count_kernel(
     int32_t acc = 0;
     if (s0 < s1 && t0 < t1) {
       const int32_t s_last = __ldg(block_ids + s1 - 1);
-      if (stage && s_last < kStageIds) {
+      if (s_last < kStageIds) {
         if (ss != staged) {
           stage_set(block_ids, s0, s1, (s_last >> 5) + 1, bits, rank, lane);
           staged = ss;
@@ -279,8 +278,7 @@ extern "C" int bitset_pair_count(const int32_t* offsets,
                                  const uint32_t* words, int32_t w,
                                  const int32_t* a_slots,
                                  const int32_t* b_slots, int64_t p,
-                                 int32_t stage, int32_t* out,
-                                 cudaStream_t stream) {
+                                 int32_t* out, cudaStream_t stream) {
   if (p <= 0) return 0;
   if (p > INT32_MAX) return (int)cudaErrorInvalidValue;
   const int32_t per_warp = (int32_t)max(
@@ -291,12 +289,12 @@ extern "C" int bitset_pair_count(const int32_t* offsets,
     bitset_pair_count_kernel<8><<<(unsigned int)blocks, kPairThreads, 0,
                                    stream>>>(offsets, block_ids, words, w,
                                              a_slots, b_slots, (int32_t)p,
-                                             per_warp, stage, out);
+                                             per_warp, out);
   else
     bitset_pair_count_kernel<0><<<(unsigned int)blocks, kPairThreads, 0,
                                    stream>>>(offsets, block_ids, words, w,
                                              a_slots, b_slots, (int32_t)p,
-                                             per_warp, stage, out);
+                                             per_warp, out);
   return (int)cudaGetLastError();
 }
 

@@ -28,8 +28,8 @@ _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 # each C entry point's arguments; the last two are the output and the stream
 _ARGTYPES = {
     "bitset_and_popcount": [_PTR, _I32, _PTR, _PTR, _I64, _PTR, _PTR],
-    "bitset_pair_count": [_PTR, _PTR, _PTR, _I32, _PTR, _PTR, _I64, _I32,
-                          _PTR, _PTR],
+    "bitset_pair_count": [_PTR, _PTR, _PTR, _I32, _PTR, _PTR, _I64, _PTR,
+                          _PTR],
 }
 
 
@@ -71,8 +71,7 @@ def bitset_and_popcount(words: torch.Tensor, pos_a: torch.Tensor,
 
 def bitset_pair_count(offsets: torch.Tensor, block_ids: torch.Tensor,
                       words: torch.Tensor, a_slots: torch.Tensor,
-                      b_slots: torch.Tensor, *,
-                      stage: bool = True) -> torch.Tensor:
+                      b_slots: torch.Tensor) -> torch.Tensor:
     """out[i] = |S_a ∩ S_b| for the slot pairs ``(a_slots[i],
     b_slots[i])`` of one blocked bitset: the sum, over the block ids both
     sets hold, of the popcount of the AND of their two block rows.
@@ -81,8 +80,7 @@ def bitset_pair_count(offsets: torch.Tensor, block_ids: torch.Tensor,
     staged for its previous pair) as a bitmap in shared memory when its
     block ids lie below the kernel's staging range, and looks the other
     set's ids up in it; any other pair takes the merge walk of both
-    lists.  ``stage=False`` sends every pair through the walk (to measure
-    and test that path); the counts are the same.
+    lists.
 
     offsets : [S+1] int32 block CSR of the sets
     block_ids : [B] int32 block numbers, sorted within each set
@@ -115,6 +113,6 @@ def bitset_pair_count(offsets: torch.Tensor, block_ids: torch.Tensor,
     err = _fn("bitset_pair_count")(
         offsets.data_ptr(), block_ids.data_ptr(), words.data_ptr(),
         int(words.shape[1]), a_slots.data_ptr(), b_slots.data_ptr(), p,
-        int(stage), out.data_ptr(), common.stream_ptr(dev))
+        out.data_ptr(), common.stream_ptr(dev))
     common.check_launch(err, NAME)
     return out

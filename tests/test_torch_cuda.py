@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each integer kernel bit-equal to
-its plain PyTorch version (``bitset_pair_count`` staged and by its merge
-walk alone, on sets inside and beyond its shared-memory staging) (``materialize`` up to its total, ``triangle_mm``
+its plain PyTorch version (``bitset_pair_count`` on sets inside and
+beyond its shared-memory staging, so by its staged lookup and its merge
+walk) (``materialize`` up to its total, ``triangle_mm``
 to the plain float64 count) (``spmv_ell`` within 1e-5 of each vertex's
 absolute sum of the plain version's sums in float64, and bit-equal to
 itself from launch to launch; ``fm_interaction`` within 1e-5
@@ -79,15 +80,15 @@ def _pair_args(bs, a, b, dev):
 
 
 def _check_pair_count(args):
-    """The set-pair kernel staged and by the walk alone, each one launch,
-    equal to the plain version and to each other."""
+    """The set-pair kernel: one launch, equal to the plain version, and
+    two launches equal."""
     want = bitset_pair_count_ref(*args)
-    for stage in (True, False):
-        before = common.LAUNCHES["bitset_intersect"]
-        got = bitset_ops.bitset_pair_count(*args, stage=stage)
-        torch.cuda.synchronize()
-        assert common.LAUNCHES["bitset_intersect"] == before + 1
-        assert torch.equal(got, want), stage
+    before = common.LAUNCHES["bitset_intersect"]
+    got = bitset_ops.bitset_pair_count(*args)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["bitset_intersect"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(bitset_ops.bitset_pair_count(*args), got)
     return want
 
 

@@ -916,7 +916,7 @@ def pair_count_work(args, torch):
 def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
     """``bitset_pair_count`` on cases built from the captured call: (a)
     the call as it is; (b) the same set pairs in a seeded shuffled order,
-    so that no run of pairs shares ``a`` (what the grouping buys); (c)
+    so that no run of pairs shares a set (what the grouping buys); (c)
     the matched-pair kernel ``bitset_and_popcount`` on the call's matched
     block pairs, expanded on the card by the plain block matching (the
     route's kernel before the fused one); (d) that route's host wall for
@@ -924,9 +924,9 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
     host block matching with one search on the card, the uploads, the
     matched-pair kernel, the fetch of its per-block counts and their
     ``np.add.at``), one reading; (e) the dense set with the most blocks
-    against every dense slot.  Each equal to the plain version, the kernels' two launches equal, timed
-    (CUDA events, L2 flushed, median of 20): printed lines, not table
-    rows."""
+    against every dense slot.  Each equal to the plain version, the
+    kernels' two launches equal, timed (CUDA events, L2 flushed, median
+    of 20): printed lines, not table rows."""
     import types
 
     import numpy as np

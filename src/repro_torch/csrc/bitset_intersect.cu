@@ -66,7 +66,7 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPairThreads = 256;  // 8 warps a block
-// a's staged bitmap covers block ids below kStageIds: 2 KB a warp
+// the staged bitmap covers block ids below kStageIds: 2 KB a warp
 constexpr int32_t kStageWords = 256;
 constexpr int32_t kStageIds = kStageWords * 32;
 // windows of 32 walked ids loaded together a lookup step
@@ -100,14 +100,14 @@ __device__ __forceinline__ bool vector_rows(const uint32_t* words, int32_t w) {
   return (w & 3) == 0 && (((uintptr_t)words) & 15) == 0;
 }
 
-// The pair's count by the merge walk of both block-id lists (design 1).
+// The pair's count by the merge walk of both block-id lists.
 __device__ __forceinline__ int32_t walk_count(
     const int32_t* __restrict__ block_ids, const uint32_t* __restrict__ words,
     int32_t w, bool vec, int32_t i, int32_t a1, int32_t j, int32_t b1,
     int lane) {
   int32_t acc = 0;
   while (i < a1 && j < b1) {  // uniform: i, j, a1, b1 are the warp's
-    // ids left in each list (> 0), so no index below passes a1 or b1
+    // the ids left in each list (> 0): no index below passes a1 or b1
     const int32_t na = a1 - i, nb = b1 - j;
     const bool in_a = lane < na;
     const int32_t x = in_a ? __ldg(block_ids + i + lane) : INT32_MAX;
@@ -171,8 +171,8 @@ __device__ __forceinline__ void stage_set(
 }
 
 // The pair's count by the walked set's ids [j, e) looked up in the staged
-// set's bitmap (rows from s0, last id s_last): kWindows windows of 32 ids
-// a step, loaded together, up to the staged set's last id.
+// set's bitmap (its rows from s0, its last id s_last): kWindows windows of
+// 32 ids a step, loaded together, up to the staged set's last id.
 __device__ __forceinline__ int32_t lookup_count(
     const int32_t* __restrict__ block_ids, const uint32_t* __restrict__ words,
     int32_t w, bool vec, int32_t s0, int32_t s_last, int32_t j, int32_t e,

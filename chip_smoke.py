@@ -85,10 +85,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its live prefix, and that prefix with one probe, and a fifth, one hub
    row of a million candidates;
    ``bitset_intersect``, the fused ``bitset_pair_count``, two launches
-   equal, with five cases from its captured call: as it is, its pairs
+   equal, with seven cases from its captured call: as it is, its pairs
    shuffled, the matched-pair ``bitset_and_popcount`` on its matched
-   blocks, that route's host wall, and the largest set against every
-   slot; ``triangle_mm`` against the float64 count), or for
+   blocks, that route's host wall, the largest set against every slot,
+   its block matching alone, and the call through the any-width
+   instance, and one more, a hub spanning two slices of the kernel's
+   staging; ``triangle_mm`` against the float64 count), or for
    ``spmv_ell`` within 1e-5 of each vertex's absolute sum of the plain
    version's sums taken in float64 (the float32 plain version's own
    distance from them is printed: on the width-1 packing it adds a hub's
@@ -924,7 +926,13 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
     host block matching with one search on the card, the uploads, the
     matched-pair kernel, the fetch of its per-block counts and their
     ``np.add.at``), one reading; (e) the dense set with the most blocks
-    against every dense slot.  Each equal to the plain version, the
+    against every dense slot; (f) the call's block matching alone: the
+    same pairs on a zero-width view of the rows, so no row is read and
+    every count is 0; (g) a hub whose 15,625 blocks (n = 4,000,000 ids)
+    span two slices of the kernel's staging, against 63 seeded sets on
+    either side and itself; (h) the call through the kernel's any-width
+    instance, on a copy of the table 4 bytes off 16-byte alignment.  Each
+    equal to the plain version, the
     kernels' two launches equal, timed (CUDA events, L2 flushed, median
     of 20): printed lines, not table rows."""
     import types
@@ -997,6 +1005,44 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
     hub = int(torch.argmax(offs[1:] - offs[:-1]))
     fused("(e) the largest set against every slot",
           (offs, bids, words, torch.full_like(every, hub), every))
+    fused("(f) the block matching alone (zero-width rows)",
+          (offs, bids, words[:, :0], sa, sb))
+    fused("(g) a hub beyond the staging", hub_pair_case(sa.device, torch))
+    shifted = torch.empty(words.numel() + 1, dtype=words.dtype,
+                          device=words.device)
+    shifted[1:].copy_(words.reshape(-1))
+    fused("(h) the any-width instance (the table 4 bytes off alignment)",
+          (offs, bids, shifted[1:].view(words.shape), sa, sb), want_case=want)
+    del shifted
+
+
+def hub_pair_case(dev, torch):
+    """``bitset_pair_count``'s arguments for a hub with an id in every one
+    of the 15,625 blocks of n = 4,000,000 ids (and 100,000 more seeded
+    ids), against 63 seeded sets of up to 20,000 ids on either side and
+    against itself."""
+    import numpy as np
+
+    from repro_torch.core.intersect import build_blocked_bitset
+    r = np.random.default_rng(0)
+    n = 4_000_000
+    hub = np.unique(np.concatenate([np.arange(0, n, 256),
+                                    r.choice(n, 100_000, replace=False)]))
+    sets = [hub] + [np.sort(r.choice(m, size=int(r.integers(1, 20_000)),
+                                     replace=False))
+                    for m in [n] * 40 + [1_000_000] * 23]
+    offs = np.concatenate([[0], np.cumsum([len(x) for x in sets])])
+    bs = build_blocked_bitset(offs, np.concatenate(sets).astype(np.int32),
+                              np.arange(len(sets)), n)
+    k = len(sets)
+    a = np.concatenate([np.zeros(k, np.int64), np.arange(k), [0]])
+    b = np.concatenate([np.arange(k), np.zeros(k, np.int64), [0]])
+
+    def t32(x):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
+                               device=dev)
+    return (t32(bs.offsets), t32(bs.block_ids),
+            t32(bs.words.view(np.int32)), t32(a), t32(b))
 
 
 def ptxas_lines(report):

@@ -77,10 +77,9 @@ def bitset_pair_count(offsets: torch.Tensor, block_ids: torch.Tensor,
     sets hold, of the popcount of the AND of their two block rows.
 
     On the card a warp stages one set of its pairs (``b``, or the set it
-    staged for its previous pair) as a bitmap in shared memory when its
-    block ids lie below the kernel's staging range, and looks the other
-    set's ids up in it; any other pair takes the merge walk of both
-    lists.
+    staged for its previous pair) as a bitmap in shared memory, in slices
+    of the kernel's staging range when its block ids span more, and looks
+    the other set's ids up in it.
 
     offsets : [S+1] int32 block CSR of the sets
     block_ids : [B] int32 block numbers, sorted within each set

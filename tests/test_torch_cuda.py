@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each integer kernel bit-equal to
-its plain PyTorch version (``bitset_pair_count`` on sets inside and
-beyond its shared-memory staging, so by its staged lookup and its merge
-walk) (``materialize`` up to its total, ``triangle_mm``
+its plain PyTorch version (``bitset_pair_count`` on sets inside its
+shared-memory staging and spanning more, staged in one slice and in
+several) (``materialize`` up to its total, ``triangle_mm``
 to the plain float64 count) (``spmv_ell`` within 1e-5 of each vertex's
 absolute sum of the plain version's sums in float64, and bit-equal to
 itself from launch to launch; ``fm_interaction`` within 1e-5
@@ -115,8 +115,8 @@ def test_bitset_pair_count_matches_plain(dev, seed):
 
 @pytest.mark.parametrize("block_bits", [64, 128, 512])
 def test_bitset_pair_count_other_block_widths(dev, block_bits):
-    """Blocks of other widths than the engine's 256 bits (rows read a word
-    at a time)."""
+    """Blocks of other widths than the engine's 256 bits (64-bit rows read
+    a word at a time, the others 16 bytes at a time)."""
     from repro_torch.core.intersect import build_blocked_bitset
     r = np.random.default_rng(block_bits)
     n = 100_000
@@ -153,6 +153,35 @@ def test_bitset_pair_count_hub_beyond_staging(dev):
     assert got[-1] == len(hub)
     for i in (1, 2, 41, 63):
         assert got[i] == got[k + i] == len(np.intersect1d(hub, sets[i]))
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_bitset_pair_count_sets_far_from_zero(dev, seed):
+    """Sets whose block ids start far from 0: narrow ones (one slice of the
+    staging from their first id), sparse ones spanning two to five slices
+    with gaps wider than a slice between their ids, and single blocks, on
+    either side of a pair and against themselves."""
+    r = np.random.default_rng(100 + seed)
+    n = 8_000_000
+    narrow = [r.integers(2_000_000, 6_000_000) + r.choice(
+        2_000_000, size=int(r.integers(1, 4000)), replace=False)
+        for _ in range(20)]
+    sparse = [np.unique(np.concatenate([
+        r.integers(0, n, int(r.integers(2, 40))),
+        r.integers(0, 200, 50) + int(r.integers(0, n - 200))]))
+        for _ in range(20)]
+    spread = [np.arange(int(r.integers(0, 1000)), n, 256 * int(k))
+              for k in (1, 2, 3)]
+    single = [np.array([int(x)]) for x in r.integers(0, n, 5)]
+    sets = narrow + sparse + spread + single
+    bs = _pair_bitset(sets, n)
+    k = len(sets)
+    a = np.concatenate([r.integers(0, k, 3000), np.arange(k)])
+    b = np.concatenate([np.sort(r.integers(0, k, 3000)), np.arange(k)])
+    want = _check_pair_count(_pair_args(bs, a, b, dev)).cpu().numpy()
+    np.testing.assert_array_equal(
+        want[-2 * k:], [len(np.intersect1d(sets[i], sets[j]))
+                        for i, j in zip(a[-2 * k:], b[-2 * k:])])
 
 
 def test_bitset_pair_count_empty_call(dev):

@@ -90,7 +90,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    blocks, that route's host wall, the largest set against every slot,
    its block matching alone, and the call through the any-width
    instance, and one more, a hub spanning two slices of the kernel's
-   staging; ``triangle_mm`` against the float64 count), or for
+   staging; ``uint_intersect`` with the captured call's shape (runs,
+   set sizes, the rows read through L2 beside the bound) and five cases,
+   each held and timed the same way, one launch a call: the call as it
+   is, shuffled, with ``u`` and ``v`` swapped, 65,536 pairs of
+   256-element sets, and as many pairs of a 1-element set against a
+   256-element one; ``triangle_mm`` against the float64 count), or for
    ``spmv_ell`` within 1e-5 of each vertex's absolute sum of the plain
    version's sums taken in float64 (the float32 plain version's own
    distance from them is printed: on the width-1 packing it adds a hub's
@@ -1045,6 +1050,134 @@ def hub_pair_case(dev, torch):
             t32(bs.words.view(np.int32)), t32(a), t32(b))
 
 
+def uint_work(args, torch):
+    """What one ``intersect_count_csr`` call needs, and its shape: its
+    bytes (each endpoint's row and two offsets once, ``u``, ``v`` and
+    the counts) and its int32 operations (a binary search of the larger
+    set, ceil(log2(|large| + 1)) steps of 4 operations, for every
+    element of the smaller)."""
+    offs, nbr, u, v = args
+    p = int(u.shape[0])
+    ends = torch.unique(torch.cat([u, v])).long()
+    offs64 = offs.long()
+    deg = offs64[ends + 1] - offs64[ends]
+    du = offs64[u.long() + 1] - offs64[u.long()]
+    dv = offs64[v.long() + 1] - offs64[v.long()]
+    small, large = torch.minimum(du, dv), torch.maximum(du, dv)
+    moved = int(deg.sum()) * 4 + int(ends.numel()) * 8 + 12 * p
+    ops = int((small * torch.log2(large.float() + 1).ceil()
+               .long()).sum()) * 4
+    shape = f"pairs={p} endpoints={int(ends.numel())}"
+    if p:
+        q = torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64,
+                         device=u.device)
+
+        def pct(x):
+            return "/".join(str(int(t)) for t in torch.quantile(
+                x.double(), q, interpolation="lower").tolist()) + \
+                f"/{int(x.max())}"
+        runs_u = int((u[1:] != u[:-1]).sum()) + 1
+        runs_v = int((v[1:] != v[:-1]).sum()) + 1
+        shape += (f" runs_of_u={runs_u} runs_of_v={runs_v} smaller_set "
+                  f"p50/p90/p99/max={pct(small)} larger_set "
+                  f"p50/p90/p99/max={pct(large)} probes={int(small.sum())}"
+                  f" u_smaller={float((du <= dv).double().mean()):.4f}; "
+                  f"rows read through L2, sum(|a|+|b|)*4 = "
+                  f"{int((du + dv).sum()) * 4} bytes "
+                  f"({int((du + dv).sum()) * 4 / HBM_BYTES_PER_S * 1e3:.4f}"
+                  f" ms at the memory rate) beside the bound's {moved}")
+    return shape, moved, ops
+
+
+def uint_sets_case(dev, torch, n_pairs=65_536, size=256, universe=4096):
+    """The routing cap's worst case: ``n_pairs`` pairs of distinct rows,
+    each a sorted set of exactly ``size`` values drawn from
+    ``universe``, made on the card from a seed; the pairs in a seeded
+    order, so no two consecutive pairs share a row."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for _ in range(2 * n_pairs // 8192):
+        keys = torch.rand(8192, universe, generator=g, device=dev)
+        rows.append(keys.topk(size, dim=1).indices.sort(dim=1).values
+                    .to(torch.int32))
+    nbr = torch.cat(rows).reshape(-1)
+    offs = torch.arange(0, nbr.numel() + 1, size, dtype=torch.int32,
+                        device=dev)
+    perm = torch.randperm(2 * n_pairs, generator=g, device=dev).to(
+        torch.int32)
+    return offs, nbr, perm[:n_pairs].contiguous(), perm[n_pairs:].contiguous()
+
+
+def uint_skew_case(sets, n_pairs, dev, torch, universe=4096):
+    """The skew the routing cap allows: ``n_pairs`` pairs of a 1-element
+    set against one of the 256-element sets of ``sets`` (case (d)'s
+    rows), the 1-element set on a seeded side of each pair; values and
+    pairs from a seed on the card."""
+    offs, nbr, _, _ = sets
+    g = torch.Generator(device=dev).manual_seed(5)
+    n_big = int(offs.shape[0]) - 1
+    ones = torch.randint(0, universe, (n_pairs,), generator=g, device=dev,
+                         dtype=torch.int32)
+    nbr2 = torch.cat([nbr, ones])
+    tail = torch.arange(1, n_pairs + 1, dtype=torch.int32,
+                        device=dev) + int(nbr.numel())
+    offs2 = torch.cat([offs, tail])
+    big = torch.randint(0, n_big, (n_pairs,), generator=g, device=dev,
+                        dtype=torch.int32)
+    one = torch.arange(n_big, n_big + n_pairs, dtype=torch.int32,
+                       device=dev)
+    flip = torch.rand(n_pairs, generator=g, device=dev) < 0.5
+    return (offs2, nbr2, torch.where(flip, one, big).contiguous(),
+            torch.where(flip, big, one).contiguous())
+
+
+def uint_cases(args, uint_ops, plain, time_ms, torch):
+    """``intersect_count_csr`` on cases built from the captured call or
+    from a seed on the card: (a) the call as it is; (b) its pairs in a
+    seeded shuffled order, so no run of pairs shares ``v`` (what reuse
+    of the shared row buys); (c) ``u`` and ``v`` swapped in every pair,
+    so the runs share ``u``; (d) the routing cap's worst case, 65,536
+    pairs of sorted 256-element sets from a universe of 4,096; (e) the
+    skew the cap allows, as many pairs as the call of a 1-element set
+    against a 256-element one, both orders mixed.  Each bit-equal to the
+    plain version, two launches equal, timed (CUDA events, L2 flushed,
+    median of 20): printed lines, not table rows."""
+    from repro_torch.kernels import common
+    offs, nbr, u, v = args
+    want = plain(*args)
+
+    def run(label, case, want_case=None):
+        before = common.LAUNCHES["uint_intersect"]
+        got = uint_ops.intersect_count_csr(*case)
+        check(common.LAUNCHES["uint_intersect"] == before + 1,
+              f"intersect_count_csr, {label}: not one launch a call")
+        check(torch.equal(got, plain(*case) if want_case is None
+                          else want_case),
+              f"intersect_count_csr, {label}: differs from its plain "
+              "version")
+        check(torch.equal(got, uint_ops.intersect_count_csr(*case)),
+              f"intersect_count_csr, {label}: two launches differ")
+        ms = time_ms(lambda: uint_ops.intersect_count_csr(*case), 20)
+        work, moved, ops = uint_work(case, torch)
+        log(f"[kernel] intersect_count_csr, {label}: {work}; equal to the "
+            f"plain version, one launch a call, two launches equal; kernel "
+            f"{ms:.4f} ms (CUDA events, L2 flushed, median of 20), bound "
+            f"{max(moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3:.4f}"
+            f" ms (bytes {moved / HBM_BYTES_PER_S * 1e3:.4f}, operations "
+            f"{ops / INT32_OPS_PER_S * 1e3:.4f})")
+
+    run("(a) the captured call", args, want_case=want)
+    perm = torch.randperm(int(u.shape[0]),
+                          generator=torch.Generator().manual_seed(0)
+                          ).to(u.device)
+    run("(b) shuffled", (offs, nbr, u[perm], v[perm]), want_case=want[perm])
+    run("(c) u and v swapped", (offs, nbr, v, u), want_case=want)
+    sets = uint_sets_case(u.device, torch)
+    run("(d) 65,536 pairs of 256-element sets", sets)
+    run("(e) 1 against 256, both orders",
+        uint_skew_case(sets, int(u.shape[0]), u.device, torch))
+
+
 def ptxas_lines(report):
     """One line for each entry function of an ``nvcc -Xptxas=-v``
     report: its (demangled) name, registers, stack frame and spills."""
@@ -1528,18 +1661,9 @@ def main():
             offs, nbr, u, v = args
             kern = lambda: uint_ops.intersect_count_csr(*args)    # noqa: E731
             plain = lambda: intersect_count_csr_ref(*args)        # noqa: E731
-            ends = torch.unique(torch.cat([u, v])).long()
-            offs64 = offs.long()
-            deg = offs64[ends + 1] - offs64[ends]
-            du = offs64[u.long() + 1] - offs64[u.long()]
-            dv = offs64[v.long() + 1] - offs64[v.long()]
-            small, large = torch.minimum(du, dv), torch.maximum(du, dv)
-            moved = (int(deg.sum()) * 4 + int(ends.numel()) * 8
-                     + nbytes(u, v) + int(u.shape[0]) * 4)
-            ops = int((small * torch.log2(large.float() + 1).ceil()
-                       .long()).sum()) * 4
-            shape = (f"pairs={int(u.shape[0])} endpoints={int(ends.numel())}"
-                     f" max_len={int(large.max())}")
+            shape, moved, ops = uint_work(args, torch)
+            uint_cases(args, uint_ops, intersect_count_csr_ref, time_ms,
+                       torch)
         if name == "spmv_ell":
             got, want = kern(), plain()
             check(torch.equal(got, kern()), "spmv_ell: two launches differ")

@@ -194,19 +194,95 @@ def test_bitset_pair_count_empty_call(dev):
     assert common.LAUNCHES["bitset_intersect"] == before
 
 
+def _check_uint(rows, u, v, dev):
+    """The kernel on pairs of the sorted sets ``rows``: one launch, equal
+    to the plain version and to ``np.intersect1d``."""
+    offs = np.concatenate([[0], np.cumsum([len(x) for x in rows])])
+    nbr = np.concatenate(rows)
+    args = (t32(offs, dev), t32(nbr, dev), t32(u, dev), t32(v, dev))
+    before = common.LAUNCHES["uint_intersect"]
+    got = uint_ops.intersect_count_csr(*args)
+    assert common.LAUNCHES["uint_intersect"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (len(u),)
+    assert torch.equal(got, intersect_count_csr_ref(*args))
+    want = [len(np.intersect1d(rows[a], rows[b])) for a, b in zip(u, v)]
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_uint_kernel_matches_plain(dev, seed):
     r = np.random.default_rng(seed)
     rows = [np.sort(r.choice(3000, size=int(r.integers(0, 257)),
                              replace=False)) for _ in range(300)]
-    offs = np.concatenate([[0], np.cumsum([len(x) for x in rows])])
-    nbr = np.concatenate(rows)
     u, v = r.integers(0, 300, (2, 5000))
-    args = (t32(offs, dev), t32(nbr, dev), t32(u, dev), t32(v, dev))
-    got = uint_ops.intersect_count_csr(*args)
-    assert torch.equal(got, intersect_count_csr_ref(*args))
-    want = [len(np.intersect1d(rows[a], rows[b])) for a, b in zip(u, v)]
-    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    _check_uint(rows, u, v, dev)
+
+
+def _uint_case(name, r):
+    """Rows and pairs of one named case of ``test_uint_kernel_cases``."""
+    def sets(count, size, universe=4096):
+        return [np.sort(r.choice(universe, size=size, replace=False))
+                for _ in range(count)]
+
+    if name == "256_both_sides":
+        rows = sets(600, 256)
+        u, v = r.integers(0, 600, (2, 3000))
+    elif name in ("1_against_256", "256_against_1"):
+        rows = sets(200, 1) + sets(200, 256)
+        u, v = r.integers(0, 200, 3000), r.integers(200, 400, 3000)
+        if name == "256_against_1":
+            u, v = v, u
+    elif name in ("runs_share_u", "runs_share_v"):
+        rows = [np.sort(r.choice(3000, size=int(r.integers(0, 75)),
+                                 replace=False)) for _ in range(500)]
+        shared = np.repeat(r.integers(0, 500, 400), r.integers(1, 47, 400))
+        other = r.integers(0, 500, len(shared))
+        u, v = (shared, other) if name == "runs_share_u" else (other, shared)
+    elif name == "straddle":
+        # many 1-element pairs, then 256-element ones, then both mixed:
+        # batches and warp ranges end inside each stretch
+        rows = sets(300, 1, 600) + sets(100, 256, 600)
+        ones = r.integers(0, 300, 4000)
+        big = r.integers(300, 400, 4000)
+        u = np.concatenate([ones, big, r.integers(0, 400, 2000)])
+        v = np.concatenate([r.integers(0, 300, 4000), big[::-1],
+                            r.integers(0, 400, 2000)])
+    elif name == "u_equals_v":
+        rows = [np.sort(r.choice(1000, size=int(r.integers(0, 257)),
+                                 replace=False)) for _ in range(200)]
+        u = r.integers(0, 200, 2000)
+        v = u
+    elif name == "empty_rows":
+        rows = [np.zeros(0, np.int64)] * 50 + sets(50, 30, 100)
+        u, v = r.integers(0, 100, (2, 3000))
+    elif name == "one_pair":
+        rows = sets(2, 256)
+        u, v = np.array([0]), np.array([1])
+    else:  # "ragged": P neither a multiple of 32 nor of a warp's range
+        rows = [np.sort(r.choice(3000, size=int(r.integers(0, 257)),
+                                 replace=False)) for _ in range(300)]
+        u, v = r.integers(0, 300, (2, 32 * 1000 + 17))
+    return rows, u, v
+
+
+@pytest.mark.parametrize("name", [
+    "256_both_sides", "1_against_256", "256_against_1", "runs_share_u",
+    "runs_share_v", "straddle", "u_equals_v", "empty_rows", "one_pair",
+    "ragged"])
+def test_uint_kernel_cases(dev, name):
+    rows, u, v = _uint_case(name, np.random.default_rng(7))
+    _check_uint(rows, u, v, dev)
+
+
+def test_uint_kernel_empty_call(dev):
+    offs = t32([0, 3, 5], dev)
+    nbr = t32([1, 2, 3, 2, 3], dev)
+    none = t32(np.zeros(0), dev)
+    before = common.LAUNCHES["uint_intersect"]
+    got = uint_ops.intersect_count_csr(offs, nbr, none, none)
+    assert got.shape == (0,) and got.dtype == torch.int32
+    assert got.device.type == "cuda"
+    assert common.LAUNCHES["uint_intersect"] == before
 
 
 @pytest.mark.parametrize("seed", range(4))

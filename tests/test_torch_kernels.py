@@ -110,22 +110,41 @@ def test_uint_contract_inputs():
     assert want.sum() > 0
 
 
-@pytest.mark.parametrize("seed", SEEDS)
-def test_uint_random_csr(seed):
-    """Random sorted sets of up to 256 elements (the kernel's route),
-    random pairs including self-pairs and empty sets, through the JAX
-    CSR entry point and the port's."""
-    r = np.random.default_rng(seed)
+def _uint_random_rows(r):
+    """Random sorted sets of up to 256 elements (the kernel's route) and
+    random pairs of them, including self-pairs and empty sets."""
     n = int(r.integers(2, 80))
     universe = int(r.integers(8, 1200))
     rows = []
     for _ in range(n):
         k = int(r.integers(0, min(256, universe) + 1))
         rows.append(np.sort(r.choice(universe, size=k, replace=False)))
-    offs, nbr = _csr_of_rows(rows)
     p = int(r.integers(1, 300))
-    u = r.integers(0, n, p)
-    v = r.integers(0, n, p)
+    return rows, r.integers(0, n, p), r.integers(0, n, p)
+
+
+def _uint_runs_rows(r):
+    """Shaped like the full-size TRIANGLE_COUNT's call: pairs sorted by
+    ``v`` in runs of 1 to 12, the smaller set on either side, the larger
+    at most 74 elements."""
+    n = 400
+    rows = [np.sort(r.choice(3000, size=int(r.integers(0, 75)),
+                             replace=False)) for _ in range(n)]
+    v = np.repeat(np.sort(r.choice(n, size=60, replace=False)),
+                  r.integers(1, 13, 60))
+    return rows, r.integers(0, n, len(v)), v
+
+
+@pytest.mark.parametrize("seed", [*SEEDS, "runs"])
+def test_uint_random_csr(seed):
+    """Seeded pairs of sorted sets through the JAX CSR entry point and the
+    port's: random sets and pairs, and (``runs``) pairs in runs sharing
+    ``v`` as the engine's pair fold sends them."""
+    if seed == "runs":
+        rows, u, v = _uint_runs_rows(np.random.default_rng(100))
+    else:
+        rows, u, v = _uint_random_rows(np.random.default_rng(seed))
+    offs, nbr = _csr_of_rows(rows)
     want = jax_uint.intersect_count_csr_batched(offs, nbr, u, v,
                                                 interpret=True)
     got = uint_ops.intersect_count_csr(t32(offs), t32(nbr), t32(u), t32(v))

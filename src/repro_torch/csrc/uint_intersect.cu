@@ -50,22 +50,27 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;  // 8 warps a block
 constexpr int kWarps = kThreads / 32;
-// staged elements a warp: two 256-element sets and more
-constexpr int32_t kStage = 1024;
+constexpr int kWaves = 8;
+// staged 16-byte chunks a warp (4 KB): two 256-element sets and more
+constexpr int32_t kStageChunks = 256;
 // the longest set staged (the engine's uint_max_len)
 constexpr int32_t kMaxStaged = 256;
+// probes a lane takes a step
+constexpr int kPerLane = 2;
 
-struct Probe {       // a pair with a probe, by its ordinal in the batch
-  const int32_t* a;  // its smaller set (staged, or in the CSR)
-  const int32_t* b;  // its larger set (staged, or in the CSR)
-  int32_t nb;        // |b|
-  int32_t first;     // its first probe's index in the batch
+// where a set of a pair lies: the staged position of its first element
+// (>= 0), or ~start for a set searched where it lies in the CSR
+struct Probe {    // a pair with a probe, by its ordinal in the batch
+  int32_t a;      // its smaller set
+  int32_t b;      // its larger set
+  int32_t nb;     // |b|
+  int32_t first;  // its first probe's index in the batch
 };
 
 struct WarpStage {
-  int32_t elems[kStage];
-  int32_t delta[2 * 32];  // a staged row's CSR start minus its staged
-                          // position, by the row's ordinal
+  int4 chunks[kStageChunks];
+  int32_t delta[2 * 32];  // a staged row's first CSR chunk minus its
+                          // staged chunk, by the row's ordinal
   Probe probe[32];
   int32_t hits[32];
 };
@@ -93,10 +98,87 @@ __device__ __forceinline__ int32_t warp_scan(int32_t x, int lane) {
   return x;
 }
 
-__device__ __forceinline__ void copy_async(int32_t* dst, const int32_t* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+__device__ __forceinline__ void copy_async16(int4* dst, const int4* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    (uint32_t)__cvta_generic_to_shared(dst)),
                "l"(src));
+}
+
+// where a set lies: in the staging, or (kStaged false, where < 0) in the
+// CSR
+template <bool kStaged>
+__device__ __forceinline__ const int32_t* set_at(const int32_t* elems,
+                                                 const int32_t* nbr,
+                                                 int32_t where) {
+  return kStaged || where >= 0 ? elems + where : nbr + ~where;
+}
+
+// Whether each sorted row[t][0, n[t]) holds x[t] (n[t] >= 1), the
+// searches in lockstep so that their loads overlap: the count of elements
+// at most x in steps of a power of two (a step past the end reads the last
+// element), keeping the last element at most x that a step read, so no
+// compare is left after the last step.
+__device__ __forceinline__ void contains(
+    const int32_t* const (&row)[kPerLane], const int32_t (&n)[kPerLane],
+    const int32_t (&x)[kPerLane], bool (&hit)[kPerLane]) {
+  int32_t upto[kPerLane], last[kPerLane], top = 1;
+#pragma unroll
+  for (int t = 0; t < kPerLane; ++t) {
+    upto[t] = 0;
+    last[t] = ~x[t];
+    top = max(top, n[t]);
+  }
+  for (int32_t step = 1 << (31 - __clz(top)); step > 0; step >>= 1) {
+#pragma unroll
+    for (int t = 0; t < kPerLane; ++t) {
+      const int32_t j = min(upto[t] + step, n[t]);
+      const int32_t y = row[t][j - 1];
+      if (y <= x[t]) {
+        upto[t] = j;
+        last[t] = y;
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kPerLane; ++t) hit[t] = last[t] == x[t];
+}
+
+// 3. The batch's probes, 32 * kPerLane consecutive ones a step, a lane's
+// t-th in the t-th window of 32, each lane's pair the last one whose first
+// probe is at or before its probe.  kStaged: every set of the batch is
+// staged.
+template <bool kStaged>
+__device__ __forceinline__ void probe_batch(WarpStage& st,
+                                            const int32_t* __restrict__ nbr,
+                                            bool live, int32_t first_probe,
+                                            int32_t n_probes, int lane) {
+  const int32_t* elems = reinterpret_cast<const int32_t*>(st.chunks);
+  int32_t pairs_before = 0;
+  for (int32_t base = 0; base < n_probes; base += 32 * kPerLane) {  // uniform
+    int q[kPerLane];
+    bool active[kPerLane], hit[kPerLane];
+    const int32_t* row[kPerLane];
+    int32_t n[kPerLane], x[kPerLane];
+#pragma unroll
+    for (int t = 0; t < kPerLane; ++t) {
+      const int32_t window = base + 32 * t;
+      const uint32_t starts = __reduce_or_sync(
+          kFull, live ? window_bit(first_probe, window) : 0u);
+      // a lane past the last probe reads the last pair, which is live
+      q[t] = pairs_before + __popc(starts & lanes_upto(lane)) - 1;
+      pairs_before += __popc(starts);
+      const Probe pr = st.probe[q[t]];
+      const int32_t k = window + lane;
+      active[t] = k < n_probes;
+      row[t] = set_at<kStaged>(elems, nbr, pr.b);
+      n[t] = active[t] ? pr.nb : 1;
+      x[t] = active[t] ? set_at<kStaged>(elems, nbr, pr.a)[k - pr.first] : 0;
+    }
+    contains(row, n, x, hit);
+#pragma unroll
+    for (int t = 0; t < kPerLane; ++t)
+      if (active[t] && hit[t]) atomicAdd(&st.hits[q[t]], 1);
+  }
 }
 
 }  // namespace
@@ -108,12 +190,18 @@ __global__ void __launch_bounds__(kThreads) uint_intersect_kernel(
   __shared__ WarpStage s_warp[kWarps];
   WarpStage& st = s_warp[threadIdx.x >> 5];
   const int lane = threadIdx.x & 31;
+  // the CSR in 16-byte chunks: a row is copied as the chunks that hold
+  // it, each of which holds one of its elements and so lies in nbr's
+  // allocation; mis: nbr's words past the chunk boundary below it
+  const int32_t mis = (int32_t)(((uintptr_t)nbr >> 2) & 3);
+  const int4* csr_chunks = reinterpret_cast<const int4*>(nbr - mis);
   // p < 2^31 (the entry point checks), so pair indices are int32
   const int64_t first64 =
       (((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5) * per_warp;
   if (first64 >= p) return;  // uniform across the warp
   const int32_t end = (int32_t)min((int64_t)p, first64 + per_warp);
   for (int32_t s = (int32_t)first64; s < end;) {  // uniform: a batch
+    // 1. a lane a pair: its sets, the smaller a and the larger b
     const int32_t i = s + lane;
     const bool in = i < end;
     int32_t ui = -1, vi = -1, a0 = 0, la = 0, b0 = 0, lb = 0;
@@ -141,13 +229,17 @@ __global__ void __launch_bounds__(kThreads) uint_intersect_kernel(
                              ((need_u_lanes >> (lane - 1)) & 1u));
     bool own_v = need_v && !(lane > 0 && v_prev == vi &&
                              ((need_v_lanes >> (lane - 1)) & 1u));
-    const int32_t staged = (own_u ? la : 0) + (own_v ? lb : 0);
+    // each row's chunks
+    const int32_t wu = a0 + mis, wv = b0 + mis;
+    const int32_t cu = la > 0 ? ((wu + la + 3) >> 2) - (wu >> 2) : 0;
+    const int32_t cv = lb > 0 ? ((wv + lb + 3) >> 2) - (wv >> 2) : 0;
+    const int32_t staged = (own_u ? cu : 0) + (own_v ? cv : 0);
     const int32_t probes = in ? na : 0;
     const int32_t staged_incl = warp_scan(staged, lane);
     const int32_t probes_incl = warp_scan(probes, lane);
     // the batch: the longest prefix whose rows fit, a pair with a set
     // beyond the staging alone
-    uint32_t fit = __ballot_sync(kFull, in && staged_incl <= kStage);
+    uint32_t fit = __ballot_sync(kFull, in && staged_incl <= kStageChunks);
     const uint32_t longs = __ballot_sync(kFull, in && nb > kMaxStaged);
     if (longs & 1u)
       fit = 1u;
@@ -159,78 +251,59 @@ __global__ void __launch_bounds__(kThreads) uint_intersect_kernel(
     own_v = own_v && take;
     const int32_t n_staged = __shfl_sync(kFull, staged_incl, n - 1);
     const int32_t n_probes = __shfl_sync(kFull, probes_incl, n - 1);
-    const int32_t pos_u = staged_incl - staged;
-    const int32_t pos_v = pos_u + (own_u ? la : 0);
+    const int32_t chunk_u = staged_incl - staged;
+    const int32_t chunk_v = chunk_u + (own_u ? cu : 0);
     // a needed row another pair staged: the nearest owner at or before
     // this lane (the lanes between share the row)
     const uint32_t own_u_lanes = __ballot_sync(kFull, own_u);
     const uint32_t own_v_lanes = __ballot_sync(kFull, own_v);
     const int32_t at_u = __shfl_sync(
-        kFull, pos_u, (31 - __clz(own_u_lanes & lanes_upto(lane))) & 31);
+        kFull, 4 * chunk_u + (wu & 3),
+        (31 - __clz(own_u_lanes & lanes_upto(lane))) & 31);
     const int32_t at_v = __shfl_sync(
-        kFull, pos_v, (31 - __clz(own_v_lanes & lanes_upto(lane))) & 31);
-    // the rows to copy, by staged position
-    const bool row_u = own_u && la > 0, row_v = own_v && lb > 0;
+        kFull, 4 * chunk_v + (wv & 3),
+        (31 - __clz(own_v_lanes & lanes_upto(lane))) & 31);
+    // the rows to copy, by staged chunk
+    const bool row_u = own_u && cu > 0, row_v = own_v && cv > 0;
     const int row_ord =
         __popc(__ballot_sync(kFull, row_u) & lanes_below(lane)) +
         __popc(__ballot_sync(kFull, row_v) & lanes_below(lane));
-    if (row_u) st.delta[row_ord] = a0 - pos_u;
-    if (row_v) st.delta[row_ord + row_u] = b0 - pos_v;
+    if (row_u) st.delta[row_ord] = (wu >> 2) - chunk_u;
+    if (row_v) st.delta[row_ord + row_u] = (wv >> 2) - chunk_v;
     // the pairs with a probe, by ordinal
     const bool live = take && na > 0;
     const uint32_t live_lanes = __ballot_sync(kFull, live);
     const int ord = __popc(live_lanes & lanes_below(lane));
     const int32_t first_probe = probes_incl - probes;
     if (live) {
-      const int32_t* row_of_u = need_u ? st.elems + at_u : nbr + a0;
-      const int32_t* row_of_v = need_v ? st.elems + at_v : nbr + b0;
-      st.probe[ord] = Probe{u_small ? row_of_u : row_of_v,
-                            u_small ? row_of_v : row_of_u, nb, first_probe};
+      const int32_t where_u = need_u ? at_u : ~a0;
+      const int32_t where_v = need_v ? at_v : ~b0;
+      st.probe[ord] = Probe{u_small ? where_u : where_v,
+                            u_small ? where_v : where_u, nb, first_probe};
       st.hits[ord] = 0;
     }
+    const bool all_staged = !__any_sync(kFull, live && !(stage_a && stage_b));
     __syncwarp();
-    // 2. stage the rows: 32 consecutive positions a step, each lane's row
-    // the last one starting at or before its position
+    // 2. stage the rows: 32 consecutive chunks a step, each lane's row the
+    // last one starting at or before its chunk
     int32_t rows_before = 0;
     for (int32_t base = 0; base < n_staged; base += 32) {  // uniform
       const uint32_t starts = __reduce_or_sync(
-          kFull, (row_u ? window_bit(pos_u, base) : 0u) |
-                     (row_v ? window_bit(pos_v, base) : 0u));
+          kFull, (row_u ? window_bit(chunk_u, base) : 0u) |
+                     (row_v ? window_bit(chunk_v, base) : 0u));
       const int32_t k = base + lane;
       if (k < n_staged) {
         const int r = rows_before + __popc(starts & lanes_upto(lane)) - 1;
-        copy_async(st.elems + k, nbr + st.delta[r] + k);
+        copy_async16(st.chunks + k, csr_chunks + st.delta[r] + k);
       }
       rows_before += __popc(starts);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncwarp();
-    // 3. the probes, 32 consecutive ones a step, each lane's pair the last
-    // one whose first probe is at or before its probe
-    int32_t pairs_before = 0;
-    for (int32_t base = 0; base < n_probes; base += 32) {  // uniform
-      const uint32_t starts = __reduce_or_sync(
-          kFull, live ? window_bit(first_probe, base) : 0u);
-      const int32_t k = base + lane;
-      if (k < n_probes) {
-        const int q = pairs_before + __popc(starts & lanes_upto(lane)) - 1;
-        const Probe pr = st.probe[q];
-        const int32_t x = pr.a[k - pr.first];
-        const int32_t* b = pr.b;
-        int32_t len = pr.nb;
-        while (len > 0) {  // lower bound of x in b
-          const int32_t half = len >> 1;
-          if (b[half] < x) {
-            b += half + 1;
-            len -= half + 1;
-          } else {
-            len = half;
-          }
-        }
-        if (b < pr.b + pr.nb && *b == x) atomicAdd(&st.hits[q], 1);
-      }
-      pairs_before += __popc(starts);
-    }
+    if (all_staged)
+      probe_batch<true>(st, nbr, live, first_probe, n_probes, lane);
+    else
+      probe_batch<false>(st, nbr, live, first_probe, n_probes, lane);
     __syncwarp();
     // 4. the counts
     if (take) out[i] = live ? st.hits[ord] : 0;
@@ -253,10 +326,12 @@ extern "C" int uint_intersect_count(const int32_t* offsets,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks_per_sm, uint_intersect_kernel, kThreads, 0);
   if (err != cudaSuccess) return (int)err;
-  // one wave: every warp the card holds at once takes an equal range
-  const int64_t resident =
-      (int64_t)sms * (int64_t)max(blocks_per_sm, 1) * kWarps;
-  const int64_t per_warp = (p + resident - 1) / resident;
+  // kWaves times the warps the card holds at once, each an equal range:
+  // about a batch a warp on the engine's calls, and the blocks that end
+  // early make room for the rest
+  const int64_t slots =
+      (int64_t)sms * (int64_t)max(blocks_per_sm, 1) * kWarps * kWaves;
+  const int64_t per_warp = (p + slots - 1) / slots;
   const int64_t warps = (p + per_warp - 1) / per_warp;
   const int64_t blocks = (warps + kWarps - 1) / kWarps;
   uint_intersect_kernel<<<(unsigned int)blocks, kThreads, 0, stream>>>(

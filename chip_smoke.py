@@ -94,8 +94,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    set sizes, the rows read through L2 beside the bound) and five cases,
    each held and timed the same way, one launch a call: the call as it
    is, shuffled, with ``u`` and ``v`` swapped, 65,536 pairs of
-   256-element sets, and as many pairs of a 1-element set against a
-   256-element one; ``triangle_mm`` against the float64 count), or for
+   256-element sets, as many pairs as the call of a 1-element set
+   against a 256-element one, and the call's pairs with every set empty; ``triangle_mm`` against the float64 count), or for
    ``spmv_ell`` within 1e-5 of each vertex's absolute sum of the plain
    version's sums taken in float64 (the float32 plain version's own
    distance from them is printed: on the width-1 packing it adds a hub's
@@ -1139,9 +1139,11 @@ def uint_cases(args, uint_ops, plain, time_ms, torch):
     so the runs share ``u``; (d) the routing cap's worst case, 65,536
     pairs of sorted 256-element sets from a universe of 4,096; (e) the
     skew the cap allows, as many pairs as the call of a 1-element set
-    against a 256-element one, both orders mixed.  Each bit-equal to the
-    plain version, two launches equal, timed (CUDA events, L2 flushed,
-    median of 20): printed lines, not table rows."""
+    against a 256-element one, both orders mixed; (f) the call's pairs
+    on offsets that are all 0, so every set is empty: the pairs' loads
+    and the batches' bookkeeping alone, no row copied or searched.  Each
+    bit-equal to the plain version, two launches equal, timed (CUDA
+    events, L2 flushed, median of 20): printed lines, not table rows."""
     from repro_torch.kernels import common
     offs, nbr, u, v = args
     want = plain(*args)
@@ -1176,6 +1178,8 @@ def uint_cases(args, uint_ops, plain, time_ms, torch):
     run("(d) 65,536 pairs of 256-element sets", sets)
     run("(e) 1 against 256, both orders",
         uint_skew_case(sets, int(u.shape[0]), u.device, torch))
+    run("(f) the pairs alone (every set empty)",
+        (torch.zeros_like(offs), nbr, u, v))
 
 
 def ptxas_lines(report):

@@ -21,26 +21,29 @@
 // through it in batches of up to 32 pairs, one a lane:
 // 1. Each lane loads its pair's u, v and four offsets (independent loads
 //    across the lanes) and picks the smaller set a and the larger set b.
-// 2. The batch stages its rows in the warp's 4 KB of shared memory with
-//    cp.async: the whole batch's copies in flight at once, coalesced, no
-//    register round trip.  A row that the previous pair staged on the
-//    same side is not read again, so a run of pairs sharing v (the fold's
-//    pairs are sorted by v), or sharing u, reads the shared row once.
-//    The batch is the longest prefix of the 32 pairs whose rows fit.
+// 2. The batch stages its rows in the warp's 4 KB of shared memory: each
+//    row as the 16-byte chunks that hold it, copied with cp.async, the
+//    whole batch's copies in flight at once, no register round trip.  A
+//    row that the previous pair staged on the same side is not read
+//    again, so a run of pairs sharing v (the fold's pairs are sorted by
+//    v), or sharing u, reads the shared row once.  The batch is the
+//    longest prefix of the 32 pairs whose rows fit.
 // 3. The lanes then take the batch's probes (one element of a smaller set
-//    each) 32 at a time, several pairs a step: a lane finds its pair by
-//    a popcount of the bitmap of the pairs' first probes in the step's
-//    window (one __reduce_or_sync a step), reads its element and
-//    binary-searches b in shared memory; a hit adds one to the pair's
-//    count in shared memory.
-//    The rows are sets, so the hits are the intersection size.
+//    each), 64 a step, several pairs a step: a lane finds the pair of each
+//    of its two probes by a popcount of the bitmap of the pairs' first
+//    probes in the probe's window of 32 (one __reduce_or_sync a window),
+//    reads the element and searches b in shared memory, both searches in
+//    lockstep so that their loads overlap; a hit adds one to the pair's
+//    count in shared memory.  The rows are sets, so the hits are the
+//    intersection size.
 // 4. The lanes write their pairs' counts, coalesced.
 // A larger set is searched where it lies in the CSR, not staged, when its
 // probes would read less of it than it holds (8 |a| log2|b| < |b|, one
 // element of the 1 against 256 pairs that the cap allows), and so is any
 // set beyond 256 elements, which the engine never sends: such a pair takes
-// a batch of its own.  The range of a warp is P over the warps the card
-// holds at once, from its SM count and this kernel's occupancy.
+// a batch of its own.  The ranges: P over 8 times the warps the card holds
+// at once (its SM count times this kernel's occupancy), about a batch a
+// warp on the engine's calls, so that blocks that end early make room.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -326,9 +329,7 @@ extern "C" int uint_intersect_count(const int32_t* offsets,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks_per_sm, uint_intersect_kernel, kThreads, 0);
   if (err != cudaSuccess) return (int)err;
-  // kWaves times the warps the card holds at once, each an equal range:
-  // about a batch a warp on the engine's calls, and the blocks that end
-  // early make room for the rest
+  // kWaves times the warps the card holds at once, each an equal range
   const int64_t slots =
       (int64_t)sms * (int64_t)max(blocks_per_sm, 1) * kWarps * kWaves;
   const int64_t per_warp = (p + slots - 1) / slots;

@@ -194,12 +194,14 @@ def test_bitset_pair_count_empty_call(dev):
     assert common.LAUNCHES["bitset_intersect"] == before
 
 
-def _check_uint(rows, u, v, dev):
+def _check_uint(rows, u, v, dev, shift=0):
     """The kernel on pairs of the sorted sets ``rows``: one launch, equal
-    to the plain version and to ``np.intersect1d``."""
+    to the plain version and to ``np.intersect1d``.  ``shift``: the
+    neighbors start that many elements past a 16-byte boundary."""
     offs = np.concatenate([[0], np.cumsum([len(x) for x in rows])])
-    nbr = np.concatenate(rows)
-    args = (t32(offs, dev), t32(nbr, dev), t32(u, dev), t32(v, dev))
+    nbr = t32(np.concatenate([np.full(shift, -1), np.concatenate(rows)]),
+              dev)[shift:]
+    args = (t32(offs, dev), nbr, t32(u, dev), t32(v, dev))
     before = common.LAUNCHES["uint_intersect"]
     got = uint_ops.intersect_count_csr(*args)
     assert common.LAUNCHES["uint_intersect"] == before + 1
@@ -272,6 +274,14 @@ def _uint_case(name, r):
 def test_uint_kernel_cases(dev, name):
     rows, u, v = _uint_case(name, np.random.default_rng(7))
     _check_uint(rows, u, v, dev)
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_uint_kernel_neighbors_off_alignment(dev, shift):
+    """The rows are copied as the 16-byte chunks that hold them, counted
+    from the neighbors' own alignment."""
+    rows, u, v = _uint_case("runs_share_v", np.random.default_rng(shift))
+    _check_uint(rows, u, v, dev, shift)
 
 
 def test_uint_kernel_empty_call(dev):

@@ -149,7 +149,8 @@ __device__ __forceinline__ void contains(
 // 3. The batch's probes, 32 * kPerLane consecutive ones a step, a lane's
 // t-th in the t-th window of 32, each lane's pair the last one whose first
 // probe is at or before its probe.  kStaged: every set of the batch is
-// staged.
+// staged, so every load here is a shared-memory load; where a set may lie
+// in the CSR the same loads take generic addresses, which are slower.
 template <bool kStaged>
 __device__ __forceinline__ void probe_batch(WarpStage& st,
                                             const int32_t* __restrict__ nbr,

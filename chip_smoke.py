@@ -91,11 +91,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its block matching alone, and the call through the any-width
    instance, and one more, a hub spanning two slices of the kernel's
    staging; ``uint_intersect`` with the captured call's shape (runs,
-   set sizes, the rows read through L2 beside the bound) and five cases,
+   set sizes, the rows read through L2 beside the bound) and six cases,
    each held and timed the same way, one launch a call: the call as it
    is, shuffled, with ``u`` and ``v`` swapped, 65,536 pairs of
    256-element sets, as many pairs as the call of a 1-element set
-   against a 256-element one, and the call's pairs with every set empty; ``triangle_mm`` against the float64 count), or for
+   against a 256-element one, and the call's pairs with every set
+   empty; ``triangle_mm`` against the float64 count), or for
    ``spmv_ell`` within 1e-5 of each vertex's absolute sum of the plain
    version's sums taken in float64 (the float32 plain version's own
    distance from them is printed: on the width-1 packing it adds a hub's

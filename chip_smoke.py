@@ -13,7 +13,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. build: compile every CUDA kernel of the port from ``src/repro_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, in parallel), and print each
-   kernel's ptxas line (registers, stack frame, spills);
+   kernel's ptxas line (registers, stack frame, spills); the fill kernel's
+   must show no stack frame and no spill;
 2. main path, with every kernel launch counter set to 0 just before and
    read just after: ``Engine(backend="device")`` runs the Table 2 queries
    TRIANGLE_COUNT, LOLLIPOP and BARBELL (cold, then warm: plans, layout
@@ -25,7 +26,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (``Engine(backend="numpy")``) with no per-extension host sync for the
    counting queries; the pipeline, both cohort kernels and every kernel
    must fire, ``bitset_intersect`` (the fused ``bitset_pair_count``) once
-   a both-dense count;
+   a both-dense count and ``frontier_fill`` once a call with slots;
 3. the full-size triangle count is held against the host oracle;
 4. recursion path, with every launch counter set to 0 just before and read
    just after: on the full-size graph ``Engine(backend="device")`` runs
@@ -79,6 +80,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    up to its total, two launches equal, with the closing fetch of the
    whole buffer and of the total's records timed, and three more cases:
    every AND full, no match, and no match with every row from L1;
+   ``frontier_fill`` with six cases built from its captured call, each
+   bit-equal and timed with its min and max: the call as it is, with
+   ``total_c = 0`` (the masked tail alone), cut to its live slots, that
+   with no probe, one hub row of a million slots, and the call launched
+   bare through the C entry beside the wrapper's host time a call and the
+   L2 flush's device time, and a line for the extension's compaction
+   (``core.backend._compact``) on its outputs;
    ``frontier_fold`` two launches equal, with the bytes alone beside its
    operation bound, four cases built from its captured call, each held
    and timed the same way: the call as it is, with no candidate, cut to
@@ -893,6 +901,105 @@ def fold_cases(args, fill_ops, plain, time_ms, torch):
             f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved} bytes)")
 
 
+def fill_hub_case(device, torch, n=1_000_000):
+    """``frontier_fill`` over one hub row: ``cap_in = 1``, ``n`` sorted
+    distinct candidates and one probe segment of ``n`` values
+    (:func:`hub_case`'s levels), every slot live."""
+    lo0, offs, total, seed, probes, _anns, _sr = hub_case(1, None, device,
+                                                          torch, n)
+    return total, offs, lo0, seed, probes, 0, n
+
+
+def fill_cases(args, fill_ops, plain, time_stats, flat, torch):
+    """``frontier_fill`` on cases built from the captured call's own
+    arguments: (a) the call as it is; (b) ``total_c = 0`` (the masked
+    tail alone); (c) ``n = total_c`` (the live slots alone); (d) case (c)
+    with no probe (row finding, the seed gather and the writes); (e) one
+    hub row (:func:`fill_hub_case`); (f) the call launched bare, through
+    the C entry into outputs allocated beforehand, beside the wrapper's
+    and the bare launch's host time a call and the L2 flush's device
+    time.  Each held bit for bit against the plain version, two launches
+    equal, timed (CUDA events, L2 flushed, median, min and max of 20):
+    printed lines, not table rows.  Then one line for the extension's
+    compaction (``core.backend._compact``) on case (a)'s outputs."""
+    from repro_torch.core.backend import _compact
+    total_c, offs, lo0, seed, probes, start, n = args
+    dev = offs.device
+    live = max(0, min(int(total_c), start + n) - start)
+    cases = (
+        ("(a) the captured call", args),
+        ("(b) total_c = 0, the masked tail alone",
+         (torch.zeros_like(total_c),) + args[1:]),
+        ("(c) n = total_c, the live slots alone", args[:6] + (live,)),
+        ("(d) the live slots alone, no probe",
+         args[:4] + ((), start, live)),
+        ("(e) one hub row", fill_hub_case(dev, torch)))
+
+    def shape(case):
+        tc, of, _lo0, sd, pr, st, nn = case
+        return (f"slots={nn} live={max(0, min(int(tc), st + nn) - st)} "
+                f"cap_in={int(of.shape[0])} n0={int(sd.shape[0])} "
+                f"probes={len(pr)} start={st}")
+
+    def stats(ms):
+        return (f"{ms[0]:.4f} ms (min {ms[1]:.4f}, max {ms[2]:.4f}; CUDA "
+                f"events, L2 flushed, median of 20)")
+
+    got_a = None
+    for label, case in cases:
+        got = flat("frontier_fill", fill_ops.fill(*case))
+        want = flat("frontier_fill", plain(*case))
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"frontier_fill, {label}: differs from its plain version")
+        again = flat("frontier_fill", fill_ops.fill(*case))
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"frontier_fill, {label}: two launches differ")
+        got_a = got if got_a is None else got_a
+        ms = time_stats(lambda: fill_ops.fill(*case), 20)
+        log(f"[kernel] frontier_fill, {label}: {shape(case)}; bit-equal to "
+            f"the plain version, two launches equal; kernel {stats(ms)}")
+
+    outs = fill_ops._outputs(len(probes), n, dev)
+    check(fill_ops._launch(*args, outs) == 0, "frontier_fill: bare launch "
+                                              "failed")
+    bare = outs[:4] + tuple(outs[4])
+    check(all(torch.equal(x, y) for x, y in zip(bare, got_a)),
+          "frontier_fill, (f): the bare launch differs from (a)")
+    ms = time_stats(lambda: fill_ops._launch(*args, outs), 20)
+
+    def host_us(fn, calls=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return wall / calls * 1e6
+
+    wrapper_us = host_us(lambda: fill_ops.fill(*args))
+    bare_us = host_us(lambda: fill_ops._launch(*args, outs))
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush_ms = time_stats(buf.zero_, 20)
+    del buf
+    log(f"[kernel] frontier_fill, (f) the call launched bare (C entry, "
+        f"outputs allocated beforehand, no checks): {shape(args)}; equal to "
+        f"(a); kernel {stats(ms)}; host time a call (perf_counter over 200 "
+        f"calls): the wrapper {wrapper_us:.1f} us, the bare launch "
+        f"{bare_us:.1f} us; the L2 flush before each timed run, timed "
+        f"alone, {flush_ms[0]:.4f} ms on the card (min {flush_ms[1]:.4f})")
+
+    keep, xs = got_a[3], got_a[:3] + got_a[4:]
+    new_count, _ = _compact(keep, xs, n)
+    ms = time_stats(lambda: _compact(keep, xs, n), 20)
+    moved = n + 2 * sum(x.numel() * x.element_size() for x in xs)
+    log(f"[kernel] extension compaction (core.backend._compact) on (a)'s "
+        f"outputs: {n} slots, {int(new_count)} kept, {len(xs)} columns; "
+        f"{stats(ms)}; its bytes (keep and the columns read, the columns "
+        f"written) {moved}, {moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the "
+        f"memory rate")
+
+
 def pair_count_work(args, torch):
     """What one ``bitset_pair_count`` call needs: its set pairs P, the
     ids of both lists of every pair (the merge steps), the matched block
@@ -1393,6 +1500,14 @@ def main():
     for name, rep in reports.items():
         for line in ptxas_lines(rep):
             log(f"[build] {name}: {line}")
+    fill_lines = [line for line in ptxas_lines(reports.get("frontier_fill",
+                                                           ""))
+                  if "frontier_fill_kernel" in line]
+    check("frontier_fill" not in reports or fill_lines,
+          "no ptxas line of frontier_fill_kernel")
+    for line in fill_lines:
+        check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+              "loads" in line, f"frontier_fill_kernel spills: {line}")
 
     # ------------------------------------------------------ 2. main path
     captures = {
@@ -1461,6 +1576,10 @@ def main():
           "no pair took the uint kernel")
     for name in KERNELS:
         check(launches.get(name, 0) > 0, f"kernel {name} never launched")
+    check(launches["frontier_fill"] == captures["frontier_fill"].calls,
+          f"frontier_fill: {launches['frontier_fill']} launches for "
+          f"{captures['frontier_fill'].calls} calls with slots, not one a "
+          "call")
     check(launches["bitset_intersect"] == captures["bitset_intersect"].calls,
           f"bitset_intersect: {launches['bitset_intersect']} launches for "
           f"{captures['bitset_intersect'].calls} both-dense counts, not one "
@@ -1526,9 +1645,9 @@ def main():
     # ---------------------------------- 8. kernels against plain versions
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def time_ms(fn, reps):
-        """Median over ``reps`` launches of ``fn`` (L2 flushed before
-        each), in ms."""
+    def time_stats(fn, reps):
+        """Median, min and max over ``reps`` launches of ``fn`` (L2
+        flushed before each), in ms."""
         fn()
         torch.cuda.synchronize()
         ev = [(torch.cuda.Event(enable_timing=True),
@@ -1539,7 +1658,13 @@ def main():
             fn()
             e.record()
         torch.cuda.synchronize()
-        return float(np.median([s.elapsed_time(e) for s, e in ev]))
+        ms = [s.elapsed_time(e) for s, e in ev]
+        return float(np.median(ms)), min(ms), max(ms)
+
+    def time_ms(fn, reps):
+        """Median over ``reps`` launches of ``fn`` (L2 flushed before
+        each), in ms."""
+        return time_stats(fn, reps)[0]
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -1585,6 +1710,7 @@ def main():
             ops = min(live, n) * steps * 4
             shape = (f"slots={n} live={live} cap_in={int(offs.shape[0])} "
                      f"n0={int(seed.shape[0])} probes={len(probes)}")
+            fill_cases(args, fill_ops, fill_ref, time_stats, flat, torch)
         elif name == "frontier_fold":
             lo0, offs, total, seed, probes, anns, sr = args
             kern = lambda: fill_ops.fold(*args)                   # noqa: E731

@@ -113,21 +113,35 @@ def fill(total_c: torch.Tensor, offs: torch.Tensor, lo0: torch.Tensor,
     if not common.kernel_device(offs, NAME):
         return fill_ref(total_c, offs, lo0, seed, probes, start, n)
 
-    vals = torch.empty(n, dtype=torch.int32, device=dev)
-    row = torch.empty(n, dtype=torch.int32, device=dev)
-    p0 = torch.empty(n, dtype=torch.int32, device=dev)
-    keep = torch.empty(n, dtype=torch.bool, device=dev)
-    pos = torch.empty((len(probes), n), dtype=torch.int32, device=dev)
+    outs = _outputs(len(probes), n, dev)
     if n == 0:
-        return vals, row, p0, keep, tuple(pos)
-    desc = _probes_desc(probes)
-    err = _lib()(total_c.data_ptr(), offs.data_ptr(), lo0.data_ptr(), cap_in,
-                 seed.data_ptr(), int(seed.shape[0]), ctypes.byref(desc),
-                 int(start), int(n), vals.data_ptr(), row.data_ptr(),
-                 p0.data_ptr(), keep.data_ptr(), pos.data_ptr(),
-                 common.stream_ptr(dev))
-    common.check_launch(err, NAME)
-    return vals, row, p0, keep, tuple(pos)
+        return outs[:4] + (tuple(outs[4]),)
+    common.check_launch(_launch(total_c, offs, lo0, seed, probes, start, n,
+                                outs), NAME)
+    return outs[:4] + (tuple(outs[4]),)
+
+
+def _outputs(n_probes: int, n: int, dev):
+    """``fill``'s output buffers: ``(vals, row, p0, keep, pos)`` with
+    ``pos`` one ``[n_probes, n]`` tensor."""
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+    return (i32(n), i32(n), i32(n),
+            torch.empty(n, dtype=torch.bool, device=dev), i32(n_probes, n))
+
+
+def _launch(total_c, offs, lo0, seed, probes, start: int, n: int,
+            outs) -> int:
+    """Launch the fill kernel into ``outs`` (:func:`_outputs`) on the
+    card, unchecked and uncounted; returns the launch error (0 if none).
+    :func:`fill` checks the arguments, allocates and counts around it."""
+    vals, row, p0, keep, pos = outs
+    return _lib()(total_c.data_ptr(), offs.data_ptr(), lo0.data_ptr(),
+                  int(offs.shape[0]), seed.data_ptr(), int(seed.shape[0]),
+                  ctypes.byref(_probes_desc(probes)), int(start), int(n),
+                  vals.data_ptr(), row.data_ptr(), p0.data_ptr(),
+                  keep.data_ptr(), pos.data_ptr(),
+                  common.stream_ptr(offs.device))
 
 
 def _fold_lib(suffix: str, scalar):

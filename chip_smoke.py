@@ -110,7 +110,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    distance from them is printed: on the width-1 packing it adds a hub's
    terms one by one) and for ``fm_interaction`` within 1e-5 of each
    row's absolute scale, their two launches bit-identical — and both are
-   timed with CUDA events (L2 flushed before each run); ``spmv_ell``
+   timed with CUDA events (L2 flushed before each run, the card kept
+   busy while the host queues it: ``HOLD_CYCLES``); ``spmv_ell``
    (the merge-path kernel on the large graph's width-1 packing, whose
    slots are its entries) also beside one ``torch.sparse`` CSR product,
    and timed once more on the width-32 split packing of the same graph
@@ -183,6 +184,11 @@ FM_RTOL, FM_ATOL = 1e-5, 1e-6
 # sums in another order; the sum-square form cancels, so the result
 # itself may lie near 0)
 FM_SCALE_REL = 1e-5
+# before each timed run the card spins this many cycles (about 1 ms) ahead
+# of the L2 flush, so the host has queued the run by the time the card
+# reaches it: the events then time the device alone, not the wrapper's
+# host time past the flush
+HOLD_CYCLES = 2_000_000
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "frontier_fill": ("src/repro_torch/csrc/frontier_fill.cu",
@@ -855,7 +861,7 @@ def hub_case(n_probes, sr, device, torch, n=1_000_000):
             probes[0][0], probes[1:], (None,) * (n_probes + 1), sr)
 
 
-def fold_cases(args, fill_ops, plain, time_ms, torch):
+def fold_cases(args, fill_ops, plain, time_stats, torch):
     """``frontier_fold`` on cases built from the captured call's own
     arguments: (a) the call as it is; (b) the same arrays with no
     candidate (the cost of the capacity alone); (c) the per-row arrays
@@ -864,7 +870,8 @@ def fold_cases(args, fill_ops, plain, time_ms, torch):
     probe (the share of the searches); and (e) one hub row
     (:func:`hub_case`) with as many probes.  Each held against the plain
     version, two launches equal, timed (CUDA events, L2 flushed, median
-    of 5): printed lines, not table rows."""
+    of 5), with the card held and, as before that hold, without:
+    printed lines, not table rows."""
     lo0, offs, total, seed, probes, anns, sr = args
     live = torch.nonzero(fold_counts(args, torch)).flatten()
     cut = int(live[-1]) + 1 if live.numel() else 1
@@ -889,14 +896,16 @@ def fold_cases(args, fill_ops, plain, time_ms, torch):
         again = fill_ops.fold(*case)
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"frontier_fold, {label}: two launches differ")
-        ms = time_ms(lambda: fill_ops.fold(*case), 5)
+        ms = time_stats(lambda: fill_ops.fold(*case), 5)[0]
+        unheld = time_stats(lambda: fill_ops.fold(*case), 5, hold=False)[0]
         cands, moved, ops = fold_work(case, torch)
         log(f"[kernel] frontier_fold, {label}: rows={int(case[0].shape[0])} "
             f"live_rows={int((fold_counts(case, torch) > 0).sum())} "
             f"candidates={cands} probes={len(case[4])} semiring={sr.name}; "
             f"equal to the plain "
             f"version, two launches equal; kernel {ms:.4f} ms (CUDA events, "
-            f"L2 flushed, median of 5), bound {ops / INT32_OPS_PER_S * 1e3:.4f}"
+            f"L2 flushed, median of 5; card not held {unheld:.4f} ms), bound "
+            f"{ops / INT32_OPS_PER_S * 1e3:.4f}"
             f" ms (operations), bytes alone "
             f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved} bytes)")
 
@@ -919,8 +928,9 @@ def fill_cases(args, fill_ops, plain, time_stats, flat, torch):
     the C entry into outputs allocated beforehand, beside the wrapper's
     and the bare launch's host time a call and the L2 flush's device
     time.  Each held bit for bit against the plain version, two launches
-    equal, timed (CUDA events, L2 flushed, median, min and max of 20):
-    printed lines, not table rows.  Then one line for the extension's
+    equal, timed (CUDA events, L2 flushed, median, min and max of 20),
+    with the card held and, for (a)-(e), without: printed lines, not table
+    rows.  Then one line for the extension's
     compaction (``core.backend._compact``) on case (a)'s outputs."""
     from repro_torch.core.backend import _compact
     total_c, offs, lo0, seed, probes, start, n = args
@@ -942,8 +952,8 @@ def fill_cases(args, fill_ops, plain, time_stats, flat, torch):
                 f"probes={len(pr)} start={st}")
 
     def stats(ms):
-        return (f"{ms[0]:.4f} ms (min {ms[1]:.4f}, max {ms[2]:.4f}; CUDA "
-                f"events, L2 flushed, median of 20)")
+        return (f"{ms[0]:.4f} ms (min {ms[1]:.4f}, max {ms[2]:.4f}; median "
+                f"of 20)")
 
     got_a = None
     for label, case in cases:
@@ -956,8 +966,10 @@ def fill_cases(args, fill_ops, plain, time_stats, flat, torch):
               f"frontier_fill, {label}: two launches differ")
         got_a = got if got_a is None else got_a
         ms = time_stats(lambda: fill_ops.fill(*case), 20)
+        unheld = time_stats(lambda: fill_ops.fill(*case), 20, hold=False)
         log(f"[kernel] frontier_fill, {label}: {shape(case)}; bit-equal to "
-            f"the plain version, two launches equal; kernel {stats(ms)}")
+            f"the plain version, two launches equal; kernel {stats(ms)}; "
+            f"card not held {stats(unheld)}")
 
     outs = fill_ops._outputs(len(probes), n, dev)
     check(fill_ops._launch(*args, outs) == 0, "frontier_fill: bare launch "
@@ -966,6 +978,8 @@ def fill_cases(args, fill_ops, plain, time_stats, flat, torch):
     check(all(torch.equal(x, y) for x, y in zip(bare, got_a)),
           "frontier_fill, (f): the bare launch differs from (a)")
     ms = time_stats(lambda: fill_ops._launch(*args, outs), 20)
+    unheld = time_stats(lambda: fill_ops._launch(*args, outs), 20,
+                        hold=False)
 
     def host_us(fn, calls=200):
         fn()
@@ -984,7 +998,8 @@ def fill_cases(args, fill_ops, plain, time_stats, flat, torch):
     del buf
     log(f"[kernel] frontier_fill, (f) the call launched bare (C entry, "
         f"outputs allocated beforehand, no checks): {shape(args)}; equal to "
-        f"(a); kernel {stats(ms)}; host time a call (perf_counter over 200 "
+        f"(a); kernel {stats(ms)}, card not held {stats(unheld)}; host time "
+        f"a call (perf_counter over 200 "
         f"calls): the wrapper {wrapper_us:.1f} us, the bare launch "
         f"{bare_us:.1f} us; the L2 flush before each timed run, timed "
         f"alone, {flush_ms[0]:.4f} ms on the card (min {flush_ms[1]:.4f})")
@@ -1645,14 +1660,17 @@ def main():
     # ---------------------------------- 8. kernels against plain versions
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def time_stats(fn, reps):
+    def time_stats(fn, reps, hold=True):
         """Median, min and max over ``reps`` launches of ``fn`` (L2
-        flushed before each), in ms."""
+        flushed before each; with ``hold``, the card held busy while the
+        host queues it, see ``HOLD_CYCLES``), in ms."""
         fn()
         torch.cuda.synchronize()
         ev = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
         for s, e in ev:
+            if hold:
+                torch.cuda._sleep(HOLD_CYCLES)
             flush.zero_()
             s.record()
             fn()
@@ -1720,7 +1738,7 @@ def main():
                      f"n0={int(seed.shape[0])} probes={len(probes)} "
                      f"semiring={sr.name}; bytes alone "
                      f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
-            fold_cases(args, fill_ops, fold_ref, time_ms, torch)
+            fold_cases(args, fill_ops, fold_ref, time_stats, torch)
         elif name == "bitset_intersect":
             kern = lambda: bitset_ops.bitset_pair_count(*args)    # noqa: E731
             plain = lambda: bitset_pair_count_ref(*args)          # noqa: E731

@@ -321,6 +321,134 @@ def test_fill_kernel_matches_plain(dev, seed):
         assert torch.equal(a, b)
 
 
+def _check_fill(args):
+    """One launch counted; every output bit-equal to the plain version;
+    two launches bit-identical."""
+    before = common.LAUNCHES["frontier_fill"]
+    got = fill_ops.fill(*args)
+    assert common.LAUNCHES["frontier_fill"] == before + 1
+    want = fill_ref(*args)
+    flat = lambda out: out[:4] + tuple(out[4])                # noqa: E731
+    for a, b in zip(flat(got), flat(want), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(flat(got), flat(fill_ops.fill(*args)), strict=True):
+        assert torch.equal(a, b)
+    return got
+
+
+def _fill_args(dev, seed, cap_in, n0, max_cnt, n_probes, *, cut=0,
+               start=0, extra=1001, live=None, hub=None, descending=False):
+    """Seeded fill inputs: rows of up to ``max_cnt`` candidates (only the
+    ``live`` ones, if given; ``hub = (row, count)`` one long row), the
+    total ``cut`` below their sum, ``extra`` dead slots past it and the
+    window from ``start``; the first probe the whole level, the others a
+    segment a row; the seed level ascending, or descending (every row's
+    candidates then fall, and each search takes the whole segment)."""
+    r = np.random.default_rng(seed)
+    seed_vals = np.sort(r.choice(4 * n0, size=n0, replace=False))
+    if descending:
+        seed_vals = seed_vals[::-1].copy()
+    lo0 = r.integers(0, n0, cap_in)
+    cnt = np.minimum(r.integers(0, max_cnt + 1, cap_in), n0 - lo0)
+    if live is not None:
+        cnt = np.where(live, cnt, 0)
+    if hub is not None:
+        lo0[hub[0]], cnt[hub[0]] = 0, hub[1]
+    offs = np.cumsum(cnt) - cnt
+    total = int(cnt.sum()) - cut
+    probes = []
+    for k in range(n_probes):
+        nk = int(r.integers(n0 // 2, 2 * n0))
+        vk = np.sort(r.choice(4 * n0, size=nk, replace=False))
+        if k == 0:
+            lo, hi = np.zeros(cap_in), np.full(cap_in, nk)
+        else:
+            lo = r.integers(0, nk, cap_in)
+            hi = np.minimum(lo + r.integers(0, 4 * max_cnt + 2, cap_in), nk)
+        probes.append((t32(vk, dev), t32(lo, dev), t32(hi, dev)))
+    return (torch.tensor(total, dtype=torch.int32, device=dev),
+            t32(offs, dev), t32(lo0, dev), t32(seed_vals, dev),
+            tuple(probes), start, total - start + extra)
+
+
+@pytest.mark.parametrize("cut", [77, 300_001])
+def test_fill_capped_total(dev, cut):
+    """The total cut inside a row, at the end or far before it (the
+    overflow clamp: rows past the total hold no live slot), rows
+    straddling tile and block edges, a slot count that is no multiple of
+    4 (the dead tail's unaligned ends)."""
+    args = _fill_args(dev, 21, 5000, 50_000, 300, 2, cut=cut)
+    assert int(args[0]) not in set(args[1].tolist())   # inside a row
+    assert args[6] % 4
+    _check_fill(args)
+
+
+@pytest.mark.parametrize("start", [1, 4097, 123_457])
+def test_fill_window_start(dev, start):
+    """A window from past slot 0: rows ending before it, the outputs
+    numbered from it."""
+    _check_fill(_fill_args(dev, 22, 3000, 40_000, 100, 1, cut=5,
+                           start=start))
+
+
+@pytest.mark.parametrize("where", ["zero", "before_start"])
+def test_fill_all_slots_dead(dev, where):
+    """total_c = 0, or at or below the window's start: every output 0."""
+    args = _fill_args(dev, 23, 2000, 10_000, 40, 2)
+    if where == "zero":
+        args = (torch.zeros_like(args[0]),) + args[1:6] + (50_003,)
+    else:
+        args = args[:5] + (int(args[0]) + 3, 50_003)
+    vals, row, p0, keep, poss = _check_fill(args)
+    assert not keep.any() and not vals.any() and not row.any()
+    assert not p0.any() and not any(p.any() for p in poss)
+
+
+def test_fill_hub_row_spans_blocks(dev):
+    """One row of 300,000 candidates among short rows: its slots span
+    many blocks' shares."""
+    _check_fill(_fill_args(dev, 24, 4000, 400_000, 20, 2,
+                           hub=(1234, 300_000), cut=1000))
+
+
+def test_fill_empty_runs_around_tile_edges(dev):
+    """Rows live in bands of 1,000 among dead ones: runs of empty rows
+    cross tile and block edges, every slot's row the last with its
+    offset."""
+    live = (np.arange(60_000) // 1000) % 2 == 1
+    _check_fill(_fill_args(dev, 25, 60_000, 20_000, 12, 1, live=live))
+
+
+@pytest.mark.parametrize("n_probes", [0, fill_ops.MAX_PROBES])
+def test_fill_probe_counts(dev, n_probes):
+    """No probe, and the most probes a fill takes (the generic
+    instance)."""
+    _check_fill(_fill_args(dev, 26 + n_probes, 3000, 30_000, 60, n_probes,
+                           cut=3))
+
+
+def test_fill_descending_seed(dev):
+    """Every row's seed values descend: no search may start where the
+    previous round left its row, each takes the whole segment."""
+    _check_fill(_fill_args(dev, 27, 2000, 20_000, 80, 2, cut=11,
+                           descending=True))
+
+
+def test_fill_makes_no_host_sync(dev):
+    """The call reads total_c on the card and sizes its grid from n and
+    cap_in: no read of a device value."""
+    args = _fill_args(dev, 28, 10_000, 50_000, 50, 2, cut=9)
+    want = fill_ops.fill(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fill_ops.fill(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(got[:4] + tuple(got[4]), want[:4] + tuple(want[4])):
+        assert torch.equal(a, b)
+
+
 FOLD_SEMIRINGS = ["count", "sum_f32", "min_plus", "max_min", "boolean"]
 
 

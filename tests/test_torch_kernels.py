@@ -154,13 +154,14 @@ def test_uint_random_csr(seed):
 
 
 # --------------------------------------------------------------- frontier_fill
-def _fill_both(c_count, total, offs, lo0, seed, probes, morsel):
-    """JAX fill_chunk for chunks 0..c_count-1 against the port's fill over
-    the same slot range in one call.  Live slots (j < total) must agree
-    in every output; keep must agree everywhere (dead slots: False)."""
+def _fill_both(c_count, total, offs, lo0, seed, probes, morsel, c0=0):
+    """JAX fill_chunk for chunks c0..c0+c_count-1 against the port's fill
+    over the same slot range in one call.  Live slots (j < total) must
+    agree in every output; keep must agree everywhere (dead slots:
+    False)."""
     outs = [jax_fill.fill_chunk(np.int32(c), np.int32(total), offs, lo0,
                                 seed, probes, morsel=morsel, interpret=True)
-            for c in range(c_count)]
+            for c in range(c0, c0 + c_count)]
     j_vals = np.concatenate([np.asarray(o[0]) for o in outs])
     j_row = np.concatenate([np.asarray(o[1]) for o in outs])
     j_p0 = np.concatenate([np.asarray(o[2]) for o in outs])
@@ -170,8 +171,8 @@ def _fill_both(c_count, total, offs, lo0, seed, probes, morsel):
     vals, row, p0, keep, poss = fill_ops.fill(
         torch.tensor(total, dtype=torch.int32), t32(offs), t32(lo0),
         t32(seed), tuple((t32(v), t32(lo), t32(hi)) for v, lo, hi in probes),
-        0, c_count * morsel)
-    live = np.arange(c_count * morsel) < total
+        c0 * morsel, c_count * morsel)
+    live = c0 * morsel + np.arange(c_count * morsel) < total
     np.testing.assert_array_equal(keep.numpy(), j_keep)
     np.testing.assert_array_equal(vals.numpy()[live], j_vals[live])
     np.testing.assert_array_equal(row.numpy()[live], j_row[live])
@@ -220,6 +221,27 @@ def test_fill_random(seed):
     morsel = 16
     chunks = max(1, -(-total // morsel)) + 1
     _fill_both(chunks, total, offs, lo0, seed_vals, tuple(probes), morsel)
+
+
+def test_fill_capped_hub_window():
+    """A total capped inside a hub row, trailing empty rows and a window
+    that starts past slot 0: the slots the fill kernel's merge path
+    clamps (row ends past the total, rows ending before the window)."""
+    r = np.random.default_rng(11)
+    n0 = 400
+    seed_vals = np.sort(r.choice(4 * n0, size=n0, replace=False))
+    cnt = np.array([5, 0, 9, 150, 7, 0, 3, 12, 0, 0, 0])
+    lo0 = np.minimum(r.integers(0, n0, cnt.size), n0 - cnt)
+    lo0[3] = 100
+    offs = np.cumsum(cnt) - cnt
+    total = int(offs[3]) + 70              # capped inside the hub row
+    vk = np.sort(r.choice(4 * n0, size=300, replace=False))
+    lo = r.integers(0, 200, cnt.size)
+    probes = ((vk, np.zeros(cnt.size, np.int64), np.full(cnt.size, 300)),
+              (vk, lo, np.minimum(lo + r.integers(0, 120, cnt.size), 300)))
+    morsel = 16
+    keep = _fill_both(5, total, offs, lo0, seed_vals, probes, morsel, c0=2)
+    assert 0 < keep.sum() < total - 2 * morsel
 
 
 def test_fill_window_offset():

@@ -971,6 +971,23 @@ def fill_cases(args, fill_ops, plain, time_stats, flat, torch):
             f"the plain version, two launches equal; kernel {stats(ms)}; "
             f"card not held {stats(unheld)}")
 
+    # the call's rows: candidates a live row, each probe's segment a row
+    rows = got_a[1][:live].long()
+    per_row = torch.bincount(rows, minlength=int(offs.shape[0]))
+    used = per_row > 0
+
+    def pct(x):
+        x = x.float()
+        return "/".join(str(int(torch.quantile(x, q))) for q in (0.5, 0.9)) + \
+            f"/{int(x.max())}"
+
+    segs = "; ".join(f"probe {k}: {int(v.shape[0])} values, segments "
+                     f"{pct((hi - lo)[used])}"
+                     for k, (v, lo, hi) in enumerate(probes))
+    log(f"[kernel] frontier_fill, the captured call's rows: {int(used.sum())}"
+        f" of {int(offs.shape[0])} hold slots, {pct(per_row[used])} slots a "
+        f"row (50th/90th percentile/max); {segs}")
+
     outs = fill_ops._outputs(len(probes), n, dev)
     check(fill_ops._launch(*args, outs) == 0, "frontier_fill: bare launch "
                                               "failed")

@@ -89,12 +89,12 @@ constexpr int kBlocks = 4096;
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename I>
-__device__ __forceinline__ I imin(I a, I b) {
+__host__ __device__ __forceinline__ I imin(I a, I b) {
   return a < b ? a : b;
 }
 
 template <typename I>
-__device__ __forceinline__ I imax(I a, I b) {
+__host__ __device__ __forceinline__ I imax(I a, I b) {
   return a < b ? b : a;
 }
 

@@ -1021,6 +1021,15 @@ def fill_cases(args, fill_ops, plain, time_stats, flat, torch):
         f"{bare_us:.1f} us; the L2 flush before each timed run, timed "
         f"alone, {flush_ms[0]:.4f} ms on the card (min {flush_ms[1]:.4f})")
 
+    # the floor of the call's writes under this timing: its outputs zeroed
+    # by PyTorch (one launch an output)
+    out_bytes = sum(x.numel() * x.element_size() for x in bare)
+    ms = time_stats(lambda: [x.zero_() for x in outs[:4] + outs[4:]], 20)
+    log(f"[kernel] frontier_fill, the call's {out_bytes} output bytes zeroed "
+        f"by torch.Tensor.zero_ ({4 + (len(probes) > 0)} launches): "
+        f"{stats(ms)}; at the memory rate "
+        f"{out_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+
     keep, xs = got_a[3], got_a[:3] + got_a[4:]
     new_count, _ = _compact(keep, xs, n)
     ms = time_stats(lambda: _compact(keep, xs, n), 20)

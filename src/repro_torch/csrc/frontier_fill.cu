@@ -22,21 +22,23 @@
 // searches, clip rules included: a probe level is sorted (a trie level),
 // so every bisection of a segment finds the same lower bound.
 //
-// What bounds it on the H100: bytes, once the searches are out of the way.
-// The outputs are written over all n slots (17 bytes a slot for one
-// probe), and the n slots of the extension's capacity are mostly more than
-// the live ones.  A thread a slot (the first port) paid, for every live
-// slot, an upper-bound search of all of offs (log2 cap_in dependent loads,
-// repeated by every slot of a row) and a lower-bound search of the whole
-// probe segment, and a thread for each dead slot.
+// What bounds it on the H100: in principle bytes: the outputs are written
+// over all n slots (17 bytes a slot for one probe), and the extension's
+// capacity n is mostly more than its live slots.  In practice, the live
+// slots' dependent loads: a slot's row data, then its seed value, then its
+// probe walk, a chain of cache latencies that each warp runs once a round.
+// A thread a slot (the first port) ran one longer chain a slot (an upper
+// bound of the slot in all of offs, repeated by every slot of a row) but
+// as many chains at once as the card holds threads.
 //
 // Design: the fold's expansion (steps 1-3 of namespace merge below), with
 // a write epilogue.
 //   1. The live slots [start, min(total_c, start + n)) are merged with the
 //      row ends, clamped to them (total_c may cut a row, and rows may end
-//      before start): blocks take equal shares of the merge, whole tiles,
-//      and a tile stages its rows' ends in shared memory.  The grid comes
-//      from n and cap_in, known on the host, never from total_c.
+//      before start).  One wave of blocks, as many as the card holds at
+//      once, takes equal shares of the merge, not rounded to tiles, so a
+//      block stages its rows' ends once (a tile of up to kFillTile items).
+//      The grid comes from n, cap_in and the card, never from total_c.
 //   2. A warp takes 32 consecutive slots a round; a lane finds its row
 //      among the staged ends from its previous row on and keeps that row's
 //      lo0, offs and probe bounds; the seed values are read coalesced.
@@ -46,9 +48,11 @@
 //   4. A lane writes its slot's outputs at the slot's own index, so a
 //      warp's stores are coalesced: no scan and no carry.
 //   5. The dead slots [min(total_c, start + n), start + n) are written as
-//      zeros by the same launch, 16 bytes a store, spread over the grid.
+//      zeros by the same launch, 16 bytes a store, spread over the grid,
+//      before the live slots' loads.
 // One launch a call; the probe count picks the instance (0, 1, 2, and one
-// for up to FF_MAX_PROBES), as for the fold.
+// for up to FF_MAX_PROBES), as for the fold.  The kernel names its minimum
+// of one block an SM: without it, ptxas spilled in the two-probe instance.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -152,15 +156,16 @@ __device__ __forceinline__ int32_t level_at(const int32_t* __restrict__ vals,
 
 // Steps 1-2 for the calling block.  The work is the merge of the cap_in
 // row ends with the len candidates: cap_in + len items.  Block b takes an
-// equal share of them, whole tiles of kTile, so a hub row spans blocks and
-// a run of empty rows costs one item a row.  Two warps find the share's
+// equal share of them (rounded up to whole tiles of Tile items if
+// WholeTiles), so a hub row spans blocks and a run of empty rows costs one
+// item a row; a tile stages at most Tile rows.  Two warps find the share's
 // ends on the merge path (32-way searches of offs); a thread each finds the
 // tile starts inside them.  Then, for each tile, its rows' ends less its
 // first candidate go to s_end and body(xs, ys, rows, ncand) runs: the tile
 // holds rows [xs, xs + rows) and candidates [ys, ys + ncand); a candidate
 // past the last staged end belongs to row xs + rows.  Every thread of the
 // block calls this; returns the share's end row x1.
-template <typename Body>
+template <int Tile, bool WholeTiles, typename Body>
 __device__ __forceinline__ int64_t merge_tiles(const RowEnds& ends,
                                                int64_t* s_path,
                                                int32_t* s_tx, int32_t* s_end,
@@ -169,7 +174,7 @@ __device__ __forceinline__ int64_t merge_tiles(const RowEnds& ends,
   const int64_t len = ends.len;
   const int64_t items = (int64_t)ends.cap_in + len;
   int64_t share = (items + gridDim.x - 1) / gridDim.x;
-  share = (share + kTile - 1) / kTile * kTile;
+  if (WholeTiles) share = (share + Tile - 1) / Tile * Tile;
   const int64_t d0 = imin((int64_t)blockIdx.x * share, items);
   const int64_t d1 = imin(d0 + share, items);
 
@@ -182,14 +187,14 @@ __device__ __forceinline__ int64_t merge_tiles(const RowEnds& ends,
   }
   __syncthreads();
   const int64_t x0 = s_path[0], x1 = s_path[1];
-  const int64_t tiles = (d1 - d0 + kTile - 1) / kTile;
+  const int64_t tiles = (d1 - d0 + Tile - 1) / Tile;
 
   for (int64_t t0 = 0; t0 < tiles; t0 += kThreads) {
     // 2. the row coordinates of tile starts t0 .. t0 + nb (the last: d1);
     // the share's own ends are x0 and x1
     const int nb = (int)imin((int64_t)kThreads, tiles - t0);
     for (int i = tid; i <= nb; i += kThreads) {
-      const int64_t d = imin(d0 + (t0 + i) * kTile, d1);
+      const int64_t d = imin(d0 + (t0 + i) * Tile, d1);
       s_tx[i] = (int32_t)(d == d0   ? x0
                           : d == d1 ? x1
                                     : path_search(ends, d, imax(x0, d - len),
@@ -197,8 +202,8 @@ __device__ __forceinline__ int64_t merge_tiles(const RowEnds& ends,
     }
     __syncthreads();
     for (int t = 0; t < nb; ++t) {
-      const int64_t ds = d0 + (t0 + t) * kTile;
-      const int64_t de = imin(ds + kTile, d1);
+      const int64_t ds = d0 + (t0 + t) * Tile;
+      const int64_t de = imin(ds + Tile, d1);
       const int32_t xs = s_tx[t], xe = s_tx[t + 1];
       const int32_t ys = (int32_t)(ds - xs), ye = (int32_t)(de - xe);
       const int rows = xe - xs;
@@ -236,7 +241,7 @@ __device__ __forceinline__ void probe_tile(
     int32_t n0, const FillProbes& probes, int np, Epi& epi) {
   constexpr int NPA = NP > 0 ? NP : 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per_warp = ((ncand + kWarps - 1) / kWarps + 31) & ~31;
+  const int per_warp = ((ncand + kWarps - 1) / kWarps + 31) / 32 * 32;
   const int c_begin = imin(warp * per_warp, ncand);
   const int c_end = imin(c_begin + per_warp, ncand);
   int prev_row = -1;
@@ -273,12 +278,12 @@ __device__ __forceinline__ void probe_tile(
     const int32_t v =
         act ? __ldg(seed + clamp_i32(p0, 0, n0 > 0 ? n0 - 1 : 0)) : INT32_MAX;
     epi.begin(act, p0);
-    // a candidate after the last of the previous round in its row has its
-    // positions no earlier than that one's
-    const bool carried = act && r == prev_row && v >= prev_v;
     // the lower bounds in every probe segment, searched in lockstep:
-    // [pos, pos + len) holds the bound, or it is pos + len
+    // [pos, pos + len) holds the bound, or it is pos + len.  A candidate
+    // after the last of the previous round in its row has its positions
+    // no earlier than that one's
     int32_t pos[NPA], len[NPA];
+    const bool carried = act && r == prev_row && v >= prev_v;
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       if (q < np) {
@@ -312,9 +317,9 @@ __device__ __forceinline__ void probe_tile(
         prev_pos[q] = __shfl_sync(kFull, pos[q], 31);
       }
     }
+    epi.end(act, c, r, p0, v, keep, pos);
     prev_row = __shfl_sync(kFull, r, 31);
     prev_v = __shfl_sync(kFull, v, 31);
-    epi.end(act, c, r, p0, v, keep, pos);
   }
 }
 
@@ -324,6 +329,10 @@ __device__ __forceinline__ void probe_tile(
 namespace fill {
 
 using namespace merge;
+
+// The most items a fill tile stages (16 KB of row ends): a block's share
+// of the call is one tile unless the call holds more than that a block.
+constexpr int kFillTile = 4096;
 
 // Zeros over bytes [b0, b1) of p: the 16-byte-aligned middle by uint4
 // stores, thread g of G taking every G-th, and the unaligned ends (under
@@ -373,7 +382,7 @@ struct Out {
 };
 
 template <int NP>
-__global__ void __launch_bounds__(kThreads) frontier_fill_kernel(
+__global__ void __launch_bounds__(kThreads, 1) frontier_fill_kernel(
     const int32_t* __restrict__ total_c, const int32_t* __restrict__ offs,
     const int32_t* __restrict__ lo0, int32_t cap_in,
     const int32_t* __restrict__ seed, int32_t n0,
@@ -381,7 +390,7 @@ __global__ void __launch_bounds__(kThreads) frontier_fill_kernel(
     int32_t* __restrict__ vals_o, int32_t* __restrict__ row_o,
     int32_t* __restrict__ p0_o, bool* __restrict__ keep_o,
     int32_t* __restrict__ pos_o) {
-  __shared__ int32_t s_end[kTile];  // the tile's row ends, less its ys
+  __shared__ int32_t s_end[kFillTile];  // the tile's row ends, less its ys
   __shared__ int32_t s_tx[kThreads + 1];  // row coordinates of tile starts
   __shared__ int64_t s_path[2];
   const int np = NP < FF_MAX_PROBES ? NP : probes.count;
@@ -389,7 +398,7 @@ __global__ void __launch_bounds__(kThreads) frontier_fill_kernel(
   const int64_t live =
       imax(imin((int64_t)__ldg(total_c), start + n) - start, (int64_t)0);
 
-  // 5. the dead slots [live, n): zeros (stores first: they do not stall)
+  // 5. the dead slots [live, n): zeros, before the live slots' loads
   const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t G = (int64_t)gridDim.x * kThreads;
   zero_bytes(vals_o, 4 * live, 4 * n, g, G);
@@ -404,10 +413,10 @@ __global__ void __launch_bounds__(kThreads) frontier_fill_kernel(
   const RowEnds ends{offs, cap_in, start, (int32_t)live};
   auto body = [&](int32_t xs, int32_t ys, int rows, int ncand) {
     Out<NP> out{vals_o, row_o, p0_o, keep_o, pos_o, n, np, xs, ys};
-    probe_tile<NP>(s_end, rows, ncand, xs, (int32_t)(start + ys), lo0, offs,
-                   seed, n0, probes, np, out);
+    probe_tile<NP>(s_end, rows, ncand, xs, (int32_t)(start + ys), lo0,
+                      offs, seed, n0, probes, np, out);
   };
-  merge_tiles(ends, s_path, s_tx, s_end, body);
+  merge_tiles<kFillTile, false>(ends, s_path, s_tx, s_end, body);
 }
 
 template <int NP>
@@ -416,10 +425,20 @@ static int launch(const int32_t* total_c, const int32_t* offs,
                   int32_t n0, const FillProbes* probes, int64_t start,
                   int64_t n, int32_t* vals, int32_t* row, int32_t* p0,
                   bool* keep, int32_t* pos, cudaStream_t stream) {
-  // the grid from what the host knows: every slot live at most
+  // the grid from what the host knows: every slot live at most, and no
+  // more blocks than the card holds at once (one wave)
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, frontier_fill_kernel<NP>, kThreads, 0);
+    resident = imax(sms * per_sm, 1);
+  }
   const int64_t blocks =
       imin(imax(((int64_t)cap_in + n + kTile - 1) / kTile, (int64_t)1),
-           (int64_t)kBlocks);
+           (int64_t)imin(resident, kBlocks));
   frontier_fill_kernel<NP><<<(unsigned)blocks, kThreads, 0, stream>>>(
       total_c, offs, lo0, cap_in, seed, n0, *probes, start, n, vals, row, p0,
       keep, pos);
@@ -629,8 +648,8 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
 
     // 3. the probes
     Contrib<T, NP> epi{anns, ann0, op, np, one, s_contrib, s_keep, one};
-    probe_tile<NP>(s_end, rows, ncand, xs, ys, lo0, offs, seed, n0, probes,
-                   np, epi);
+    probe_tile<NP>(s_end, rows, ncand, xs, ys, lo0, offs, seed, n0,
+                      probes, np, epi);
     __syncthreads();
 
     // 4. fold this thread's items in order
@@ -720,7 +739,8 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
       supp[xs + r] = s_supp[r];
     }
   };
-  const int64_t x1 = merge_tiles(ends, s_path, s_tx, s_end, body);
+  const int64_t x1 =
+      merge_tiles<kTile, true>(ends, s_path, s_tx, s_end, body);
   if (tid == 0) {
     carry_row[blockIdx.x] = (int32_t)x1;
     carry_val[blockIdx.x] = s_cval;

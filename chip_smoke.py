@@ -85,8 +85,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``total_c = 0`` (the masked tail alone), cut to its live slots, that
    with no probe, one hub row of a million slots, and the call launched
    bare through the C entry beside the wrapper's host time a call and the
-   L2 flush's device time, and a line for the extension's compaction
-   (``core.backend._compact``) on its outputs;
+   L2 flush's device time, and lines for the call's outputs zeroed by
+   PyTorch (the floor of its writes under the same timing) and for the
+   extension's compaction (``core.backend._compact``) on its outputs;
    ``frontier_fold`` two launches equal, with the bytes alone beside its
    operation bound, four cases built from its captured call, each held
    and timed the same way: the call as it is, with no candidate, cut to
@@ -929,9 +930,10 @@ def fill_cases(args, fill_ops, plain, time_stats, flat, torch):
     and the bare launch's host time a call and the L2 flush's device
     time.  Each held bit for bit against the plain version, two launches
     equal, timed (CUDA events, L2 flushed, median, min and max of 20),
-    with the card held and, for (a)-(e), without: printed lines, not table
-    rows.  Then one line for the extension's
-    compaction (``core.backend._compact``) on case (a)'s outputs."""
+    with the card held and without: printed lines, not table rows.  Then
+    a line each for the call's rows, its outputs zeroed by PyTorch, and
+    the extension's compaction (``core.backend._compact``) on case (a)'s
+    outputs."""
     from repro_torch.core.backend import _compact
     total_c, offs, lo0, seed, probes, start, n = args
     dev = offs.device

@@ -681,7 +681,7 @@ def triangle_path(torch):
     return launches
 
 
-def triangle_mm_passes(a, tri_ops, time_ms, torch):
+def triangle_mm_passes(a, tri_ops, time_stats, torch):
     """What ``triangle_mm``'s count pass visits on ``a``, its scratch, and
     its two passes timed apart (CUDA events, L2 flushed, median of 5
     launches of each): a clause of the kernel's printed line."""
@@ -692,10 +692,10 @@ def triangle_mm_passes(a, tri_ops, time_ms, torch):
     scratch = torch.empty(tri_ops.scratch_bytes(n), dtype=torch.uint8,
                           device="cuda")
     out = torch.empty((), dtype=torch.int64, device="cuda")
-    pack_ms = time_ms(
-        lambda: tri_ops.run_passes(a, scratch, out, tri_ops.PACK), 5)
-    count_ms = time_ms(
-        lambda: tri_ops.run_passes(a, scratch, out, tri_ops.COUNT), 5)
+    pack_ms = time_stats(
+        lambda: tri_ops.run_passes(a, scratch, out, tri_ops.PACK), 5)[0]
+    count_ms = time_stats(
+        lambda: tri_ops.run_passes(a, scratch, out, tri_ops.COUNT), 5)[0]
     check(torch.equal(out, tri_ops.triangle_mm(a)),
           "triangle_mm's count pass alone differs from the whole call")
     del scratch
@@ -706,7 +706,7 @@ def triangle_mm_passes(a, tri_ops, time_ms, torch):
             f"of 5); scratch {tri_ops.scratch_bytes(n)} bytes")
 
 
-def triangle_mm_cases(a, tri_ops, plain, time_ms, torch):
+def triangle_mm_cases(a, tri_ops, plain, time_stats, torch):
     """``triangle_mm`` on the all-zero matrix of ``a``'s size (count 0)
     and on its worst case, a dense random 0/1 matrix where every tile
     triple holds work, exact against the float64 plain version and timed
@@ -715,7 +715,7 @@ def triangle_mm_cases(a, tri_ops, plain, time_ms, torch):
     got = tri_ops.triangle_mm(zero)
     check(int(got) == 0, f"triangle_mm of the zero matrix gives {int(got)}")
     log(f"[kernel] triangle_mm on the zero {int(a.shape[0])}^2 matrix: "
-        f"count 0; " + triangle_mm_passes(zero, tri_ops, time_ms, torch))
+        f"count 0; " + triangle_mm_passes(zero, tri_ops, time_stats, torch))
     del zero
     n = TRI_WORST_N
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -726,13 +726,13 @@ def triangle_mm_cases(a, tri_ops, plain, time_ms, torch):
     want = plain(d)
     check(float(want) == int(got), f"triangle_mm worst case {int(got)} != "
                                    f"plain {float(want)}")
-    ms = time_ms(lambda: tri_ops.triangle_mm(d), 5)
-    mm_ms = time_ms(lambda: torch.matmul(d, d), 5)
+    ms = time_stats(lambda: tri_ops.triangle_mm(d), 5)[0]
+    mm_ms = time_stats(lambda: torch.matmul(d, d), 5)[0]
     log(f"[kernel] triangle_mm worst case, a random 0/1 {n}^2 float32 "
         f"matrix at density 0.5 (torch.Generator seed 0): raw count "
         f"{int(got)}, equal to the float64 plain version, two launches "
         f"equal; kernel {ms:.4f} ms, torch.matmul {mm_ms:.4f} ms; "
-        + triangle_mm_passes(d, tri_ops, time_ms, torch))
+        + triangle_mm_passes(d, tri_ops, time_stats, torch))
 
 
 def materialize_bytes(words, pa, pb, total, torch):
@@ -770,7 +770,7 @@ def materialize_fetch(buf, total, mat_ops, common, torch):
             f"{8 + 16 * total} bytes in {cut_ms:.3f} ms")
 
 
-def materialize_cases(args, mat_ops, plain, time_ms, torch):
+def materialize_cases(args, mat_ops, plain, time_stats, torch):
     """``materialize`` on the captured call's pairs over a zero words
     table (no match: the read-only floor), on as many pairs all on one
     zero block (no match, every row from L1: the floor without the rows'
@@ -804,7 +804,7 @@ def materialize_cases(args, mat_ops, plain, time_ms, torch):
         check(torch.equal(got[:used], mat_ops.materialize(*case, cap)[:used]),
               f"materialize, {label}: two launches differ")
         del got, want
-        ms = time_ms(lambda: mat_ops.materialize(*case, cap), 5)
+        ms = time_stats(lambda: mat_ops.materialize(*case, cap), 5)[0]
         moved, _ = materialize_bytes(table, ca, cb, total, torch)
         log(f"[kernel] materialize, {label}: pairs={n} matches={total}, "
             f"bit-equal to the plain version, two launches equal; kernel "
@@ -871,8 +871,7 @@ def fold_cases(args, fill_ops, plain, time_stats, torch):
     probe (the share of the searches); and (e) one hub row
     (:func:`hub_case`) with as many probes.  Each held against the plain
     version, two launches equal, timed (CUDA events, L2 flushed, median
-    of 5), with the card held and, as before that hold, without:
-    printed lines, not table rows."""
+    of 5): printed lines, not table rows."""
     lo0, offs, total, seed, probes, anns, sr = args
     live = torch.nonzero(fold_counts(args, torch)).flatten()
     cut = int(live[-1]) + 1 if live.numel() else 1
@@ -898,14 +897,13 @@ def fold_cases(args, fill_ops, plain, time_stats, torch):
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"frontier_fold, {label}: two launches differ")
         ms = time_stats(lambda: fill_ops.fold(*case), 5)[0]
-        unheld = time_stats(lambda: fill_ops.fold(*case), 5, hold=False)[0]
         cands, moved, ops = fold_work(case, torch)
         log(f"[kernel] frontier_fold, {label}: rows={int(case[0].shape[0])} "
             f"live_rows={int((fold_counts(case, torch) > 0).sum())} "
             f"candidates={cands} probes={len(case[4])} semiring={sr.name}; "
             f"equal to the plain "
             f"version, two launches equal; kernel {ms:.4f} ms (CUDA events, "
-            f"L2 flushed, median of 5; card not held {unheld:.4f} ms), bound "
+            f"L2 flushed, median of 5), bound "
             f"{ops / INT32_OPS_PER_S * 1e3:.4f}"
             f" ms (operations), bytes alone "
             f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved} bytes)")
@@ -929,8 +927,8 @@ def fill_cases(args, fill_ops, plain, time_stats, flat, torch):
     the C entry into outputs allocated beforehand, beside the wrapper's
     and the bare launch's host time a call and the L2 flush's device
     time.  Each held bit for bit against the plain version, two launches
-    equal, timed (CUDA events, L2 flushed, median, min and max of 20),
-    with the card held and without: printed lines, not table rows.  Then
+    equal, timed (CUDA events, L2 flushed, median, min and max of 20;
+    (f) also without the card held): printed lines, not table rows.  Then
     a line each for the call's rows, its outputs zeroed by PyTorch, and
     the extension's compaction (``core.backend._compact``) on case (a)'s
     outputs."""
@@ -968,10 +966,8 @@ def fill_cases(args, fill_ops, plain, time_stats, flat, torch):
               f"frontier_fill, {label}: two launches differ")
         got_a = got if got_a is None else got_a
         ms = time_stats(lambda: fill_ops.fill(*case), 20)
-        unheld = time_stats(lambda: fill_ops.fill(*case), 20, hold=False)
         log(f"[kernel] frontier_fill, {label}: {shape(case)}; bit-equal to "
-            f"the plain version, two launches equal; kernel {stats(ms)}; "
-            f"card not held {stats(unheld)}")
+            f"the plain version, two launches equal; kernel {stats(ms)}")
 
     # the call's rows: candidates a live row, each probe's segment a row
     rows = got_a[1][:live].long()
@@ -1071,7 +1067,7 @@ def pair_count_work(args, torch):
             f"runs_of_a={runs_a} runs_of_b={runs_b}", moved, ops)
 
 
-def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
+def pair_count_cases(args, bitset_ops, plain, time_stats, torch):
     """``bitset_pair_count`` on cases built from the captured call: (a)
     the call as it is; (b) the same set pairs in a seeded shuffled order,
     so that no run of pairs shares a set (what the grouping buys); (c)
@@ -1108,7 +1104,7 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
               f"bitset_pair_count, {label}: differs from its plain version")
         check(torch.equal(got, bitset_ops.bitset_pair_count(*case)),
               f"bitset_pair_count, {label}: two launches differ")
-        ms = time_ms(lambda: bitset_ops.bitset_pair_count(*case), 20)
+        ms = time_stats(lambda: bitset_ops.bitset_pair_count(*case), 20)[0]
         work, moved, ops = pair_count_work(case, torch)
         log(f"[kernel] bitset_pair_count, {label}: {work}; equal to the "
             f"plain version, two launches equal; kernel {ms:.4f} ms (CUDA "
@@ -1132,7 +1128,8 @@ def pair_count_cases(args, bitset_ops, plain, time_ms, torch):
           "bitset_and_popcount on the matched blocks: other counts")
     check(torch.equal(per_block, bitset_ops.bitset_and_popcount(words, pa, pb)),
           "bitset_and_popcount: two launches differ")
-    ms = time_ms(lambda: bitset_ops.bitset_and_popcount(words, pa, pb), 20)
+    ms = time_stats(lambda: bitset_ops.bitset_and_popcount(words, pa, pb),
+                    20)[0]
     moved = (int(torch.unique(torch.cat([pa, pb])).numel()) * 4
              * int(words.shape[1]) + 12 * int(pa.shape[0]))
     log(f"[kernel] bitset_pair_count, (c) the matched-pair kernel "
@@ -1282,7 +1279,7 @@ def uint_skew_case(sets, n_pairs, dev, torch, universe=4096):
             torch.where(flip, big, one).contiguous())
 
 
-def uint_cases(args, uint_ops, plain, time_ms, torch):
+def uint_cases(args, uint_ops, plain, time_stats, torch):
     """``intersect_count_csr`` on cases built from the captured call or
     from a seed on the card: (a) the call as it is; (b) its pairs in a
     seeded shuffled order, so no run of pairs shares ``v`` (what reuse
@@ -1310,7 +1307,7 @@ def uint_cases(args, uint_ops, plain, time_ms, torch):
               "version")
         check(torch.equal(got, uint_ops.intersect_count_csr(*case)),
               f"intersect_count_csr, {label}: two launches differ")
-        ms = time_ms(lambda: uint_ops.intersect_count_csr(*case), 20)
+        ms = time_stats(lambda: uint_ops.intersect_count_csr(*case), 20)[0]
         work, moved, ops = uint_work(case, torch)
         log(f"[kernel] intersect_count_csr, {label}: {work}; equal to the "
             f"plain version, one launch a call, two launches equal; kernel "
@@ -1707,11 +1704,6 @@ def main():
         ms = [s.elapsed_time(e) for s, e in ev]
         return float(np.median(ms)), min(ms), max(ms)
 
-    def time_ms(fn, reps):
-        """Median over ``reps`` launches of ``fn`` (L2 flushed before
-        each), in ms."""
-        return time_stats(fn, reps)[0]
-
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
@@ -1774,7 +1766,7 @@ def main():
             shape += (f" blocks={int(args[2].shape[0])} "
                       f"words={int(args[2].shape[1])}")
             pair_count_cases(args, bitset_ops, bitset_pair_count_ref,
-                             time_ms, torch)
+                             time_stats, torch)
         elif name == "spmv_ell":
             cols, vals, row_ptr, x = args
             kern = lambda: ell_ops.spmv_ell(*args)                # noqa: E731
@@ -1839,7 +1831,7 @@ def main():
             kern = lambda: uint_ops.intersect_count_csr(*args)    # noqa: E731
             plain = lambda: intersect_count_csr_ref(*args)        # noqa: E731
             shape, moved, ops = uint_work(args, torch)
-            uint_cases(args, uint_ops, intersect_count_csr_ref, time_ms,
+            uint_cases(args, uint_ops, intersect_count_csr_ref, time_stats,
                        torch)
         if name == "spmv_ell":
             got, want = kern(), plain()
@@ -1864,7 +1856,7 @@ def main():
                                  "large graph's")
             lib = torch.mv(a, x)
             lib_rel = float(((lib.double() - exact).abs() / scale).max())
-            library_ms = time_ms(lambda: torch.mv(a, x), 20)
+            library_ms = time_stats(lambda: torch.mv(a, x), 20)[0]
             shape += (f"; within {rel} of the absolute sum of the sums in "
                       f"float64 (limit {ELL_REL_LIMIT}; the float32 plain "
                       f"version {plain_rel}, max |kernel - plain| {err}), "
@@ -1880,7 +1872,7 @@ def main():
             split_rel = float(((ell_ops.spmv_ell(*split, x).double()
                                 - spmv_ell_f64(*split, x)).abs()
                                / scale).max())
-            split_ms = time_ms(lambda: ell_ops.spmv_ell(*split, x), 20)
+            split_ms = time_stats(lambda: ell_ops.spmv_ell(*split, x), 20)[0]
             log(f"[kernel] spmv_ell on the width-32 split packing of the "
                 f"same graph ({split[0].numel()} slots for {nnz} entries): "
                 f"{split_ms:.4f} ms, {split_rel} of the absolute sum")
@@ -1899,7 +1891,8 @@ def main():
             shape += ("; bit-equal up to the total, two launches equal; "
                       + materialize_fetch(got, total, mat_ops, common, torch))
             del got, want
-            materialize_cases(args, mat_ops, materialize_ref, time_ms, torch)
+            materialize_cases(args, mat_ops, materialize_ref, time_stats,
+                              torch)
         elif name == "triangle_mm":
             got, want = kern(), plain()
             check(torch.equal(got, kern()), "triangle_mm: two launches "
@@ -1909,12 +1902,12 @@ def main():
                   f"triangle_mm {int(got)} != plain {float(want)}")
             lib_fn = lambda: (torch.matmul(a, a) * a).sum()       # noqa: E731
             lib = float(lib_fn())
-            library_ms = time_ms(lib_fn, reps)
+            library_ms = time_stats(lib_fn, reps)[0]
             shape += (f"; raw count {int(got)}, equal to the float64 plain "
                       f"version, two launches equal; torch.matmul "
                       f"{library_ms:.4f} ms (gives {lib}); "
-                      + triangle_mm_passes(a, tri_ops, time_ms, torch))
-            triangle_mm_cases(a, tri_ops, triangle_count_dense_ref, time_ms,
+                      + triangle_mm_passes(a, tri_ops, time_stats, torch))
+            triangle_mm_cases(a, tri_ops, triangle_count_dense_ref, time_stats,
                               torch)
         elif name == "fm_interaction":
             got, want = kern(), plain()
@@ -1936,8 +1929,8 @@ def main():
             check(err == 0, f"{name} differs from its plain version (max "
                             f"|err| {err})")
             shape += "; bit-equal"
-        ms = time_ms(kern, reps)
-        plain_ms = time_ms(plain, plain_reps)
+        ms = time_stats(kern, reps)[0]
+        plain_ms = time_stats(plain, plain_reps)[0]
         b_bytes = moved / HBM_BYTES_PER_S * 1e3
         b_ops = ops / bound_ops_per_s * 1e3
         rows.append({

@@ -1,58 +1,49 @@
-// frontier_fill: the fill stage of the zero-sync count-then-fill extension,
-// and frontier_fold, the device terminal fold (its own header below).  The
-// two expand the same rows into the same candidates, so they share the
-// merge-path engine of namespace merge and differ only in what they do
-// with each candidate.
+// frontier_fill: the fill stage of the zero-sync count-then-fill extension.
 //
-// The fill replaces the TPU kernel src/repro/kernels/frontier_fill/kernel.py
+// Replaces the TPU kernel src/repro/kernels/frontier_fill/kernel.py
 // (make_fill_kernel, launched from ops.py::fill_chunk), which fills one
 // morsel chunk per launch from inside the bag program's while-loop.
 //
 // For every output slot j in [start, start + n):
-//   1. the source frontier row: the last row with offs[row] <= j (the
-//      reference's upper bound of j in the exclusive-scan offsets, clamped
-//      to [0, cap_in));
+//   1. upper-bound search of j in the exclusive-scan offsets gives the
+//      source frontier row;
 //   2. p0 = lo0[row] + (j - offs[row]) and the seed value seed[p0];
-//   3. per probe atom, the lower bound of the value in the row's candidate
-//      segment [lo_k[row], hi_k[row]); membership is AND-ed into keep and
-//      the position is written out.
+//   3. per probe atom, a lower-bound search of the value in the row's
+//      candidate segment [lo_k[row], hi_k[row]); membership is AND-ed
+//      into keep and the position is written out.
 // Slots at or past *total_c (read from device memory, so the host never
 // learns the frontier size) are masked: keep = 0 and every other output 0.
-// Positions and membership are bit-equal to the reference's lockstep
-// searches, clip rules included: a probe level is sorted (a trie level),
-// so every bisection of a segment finds the same lower bound.
+// Every position and row equals what the reference's lockstep lower/upper-
+// bound loops return, clip rules included, so the outputs are bit-exact.
 //
-// What bounds it on the H100: in principle bytes: the outputs are written
-// over all n slots (17 bytes a slot for one probe), and the extension's
-// capacity n is mostly more than its live slots.  In practice, the live
-// slots' dependent loads: a slot's row data, then its seed value, then its
-// probe walk, a chain of cache latencies that each warp runs once a round.
-// A thread a slot (the first port) ran one longer chain a slot (an upper
-// bound of the slot in all of offs, repeated by every slot of a row) but
-// as many chains at once as the card holds threads.
+// What bounds it on the H100: dependent loads.  A slot reads its row, its
+// seed value and log2 of each probe segment in scattered 4-byte values;
+// there is no arithmetic to speak of, so the chain of loads a warp waits
+// on sets the time.  Design: one thread per slot, 256 threads a block,
+// read-only loads through the texture path (__ldg), and two searches that
+// the warp makes together to shorten each slot's chain:
+//   * the row: the 32 lanes find the row of the warp's first slot at once,
+//     32 probes of offs a step (3 dependent loads over 32,768 rows, where a
+//     slot's own binary search takes 15); the next 31 row ends are read
+//     once, a lane each, and each lane finds its slot's row among them by
+//     five shuffles, its offset with it.  A warp inside one row skips the
+//     shuffles; a slot past those ends (31 or more empty rows among the
+//     warp's slots) searches the rest of offs alone.
+//   * a long probe segment (past kNarrowMin, inside the level) that every
+//     lane searches: 32 probes of it a step, each lane keeping the part
+//     between the two that bracket its value, while every lane keeps the
+//     same part; then each lane's own binary search.  The segment is
+//     sorted (a trie level), so the lower bound is the reference's.  A hub
+//     row of a million slots takes 3 such steps and 5 loads of its own, not
+//     20.
+// A merge-path design (the fold's, below: rows from staged row ends, each
+// row's probes walked from where the warp's previous slots left them)
+// found rows faster but searched the main path's short rows slower and
+// lost its call on the H100; a slot a thread keeps 64 warps an SM in
+// flight on 32 registers.
 //
-// Design: the fold's expansion (steps 1-3 of namespace merge below), with
-// a write epilogue.
-//   1. The live slots [start, min(total_c, start + n)) are merged with the
-//      row ends, clamped to them (total_c may cut a row, and rows may end
-//      before start).  One wave of blocks, as many as the card holds at
-//      once, takes equal shares of the merge, not rounded to tiles, so a
-//      block stages its rows' ends once (a tile of up to kFillTile items).
-//      The grid comes from n, cap_in and the card, never from total_c.
-//   2. A warp takes 32 consecutive slots a round; a lane finds its row
-//      among the staged ends from its previous row on and keeps that row's
-//      lo0, offs and probe bounds; the seed values are read coalesced.
-//   3. A probe's lower bound is walked from where the warp's previous round
-//      left the row, in branch-free halving steps; a slot whose value is
-//      below the previous round's last searches the whole segment.
-//   4. A lane writes its slot's outputs at the slot's own index, so a
-//      warp's stores are coalesced: no scan and no carry.
-//   5. The dead slots [min(total_c, start + n), start + n) are written as
-//      zeros by the same launch, 16 bytes a store, spread over the grid,
-//      before the live slots' loads.
-// One launch a call; the probe count picks the instance (0, 1, 2, and one
-// for up to FF_MAX_PROBES), as for the fold.  The kernel names its minimum
-// of one block an SM: without it, ptxas spilled in the two-probe instance.
+// The same source holds frontier_fold, the device terminal fold (its own
+// header below).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,376 +67,134 @@ __device__ __forceinline__ int32_t clamp_i32(int32_t x, int32_t lo,
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// ------------------------------------------- the shared merge-path engine
-namespace merge {
+constexpr unsigned kFillFull = 0xffffffffu;
+// A probe segment the warp narrows together is longer than this.
+constexpr int32_t kNarrowMin = 64;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// Items of the merge a fold thread walks: odd, so that lanes walking a run
-// of candidates touch shared memory at an odd stride, free of bank
-// conflicts.
-constexpr int kItems = 7;
-constexpr int kTile = kThreads * kItems;
-// The most blocks of a launch; the fold's carries' scratch holds a slot
-// each.  On the H100's 132 SMs that is several waves of resident blocks:
-// smaller shares even out the blocks whose items cost more than others'.
-constexpr int kBlocks = 4096;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename I>
-__host__ __device__ __forceinline__ I imin(I a, I b) {
-  return a < b ? a : b;
-}
-
-template <typename I>
-__host__ __device__ __forceinline__ I imax(I a, I b) {
-  return a < b ? b : a;
-}
-
-// The rows' ends on the candidate axis [0, len), which starts at candidate
-// `base`: row x ends at offs[x + 1] - base, clamped to [0, len], and the
-// last row at len.
-struct RowEnds {
-  const int32_t* offs;
-  int32_t cap_in;
-  int64_t base;
-  int32_t len;
-
-  __device__ __forceinline__ int32_t operator()(int64_t x) const {
-    if (x + 1 >= cap_in) return len;
-    const int64_t e = (int64_t)__ldg(offs + x + 1) - base;
-    return (int32_t)imin(imax(e, (int64_t)0), (int64_t)len);
-  }
-};
-
-// The merge-path coordinate on diagonal d: the least x in [lo, hi] with
-// ends(x) + x >= d (the row ends consumed; d - x candidates).  The whole
-// warp searches, 32 probes a step.
-__device__ __forceinline__ int64_t warp_path_search(const RowEnds& ends,
-                                                    int64_t d, int64_t lo,
-                                                    int64_t hi) {
+// The least x in [0, cap_in] with offs[x] > j (x = cap_in if none): the
+// reference's upper bound over the sorted offs.  The whole warp searches,
+// 32 probes a step; j is the same in every lane.
+__device__ __forceinline__ int32_t warp_upper_bound(
+    const int32_t* __restrict__ offs, int32_t cap_in, int32_t j) {
   const int lane = threadIdx.x & 31;
+  int32_t lo = 0, hi = cap_in;
   while (lo < hi) {  // lo and hi are the same in every lane
-    const int64_t p = lo + (hi - lo) * (lane + 1) / 33;  // in [lo, hi)
-    const bool right = (int64_t)ends(p) + p >= d;
-    const unsigned m = __ballot_sync(kFull, right);
-    const int k = m ? __ffs(m) - 1 : 32;  // first probe on the right
-    const int64_t at = __shfl_sync(kFull, p, k & 31);
-    const int64_t before = __shfl_sync(kFull, p, (k + 31) & 31);
+    const int32_t p = lo + (int32_t)((int64_t)(hi - lo) * (lane + 1) / 33);
+    const unsigned m = __ballot_sync(kFillFull, __ldg(offs + p) > j);
+    const int k = m ? __ffs(m) - 1 : 32;  // first probe past j
+    const int32_t at = __shfl_sync(kFillFull, p, k & 31);
+    const int32_t before = __shfl_sync(kFillFull, p, (k + 31) & 31);
     hi = k < 32 ? at : hi;
     lo = k > 0 ? before + 1 : lo;
   }
   return lo;
 }
 
-// The same coordinate by one thread's binary search.
-__device__ __forceinline__ int64_t path_search(const RowEnds& ends, int64_t d,
-                                               int64_t lo, int64_t hi) {
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if ((int64_t)ends(mid) + mid >= d) hi = mid;
-    else lo = mid + 1;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ int32_t level_at(const int32_t* __restrict__ vals,
-                                            int32_t n, int32_t p) {
-  return __ldg(vals + clamp_i32(p, 0, n - 1));
-}
-
-// Steps 1-2 for the calling block.  The work is the merge of the cap_in
-// row ends with the len candidates: cap_in + len items.  Block b takes an
-// equal share of them (rounded up to whole tiles of Tile items if
-// WholeTiles), so a hub row spans blocks and a run of empty rows costs one
-// item a row; a tile stages at most Tile rows.  Two warps find the share's
-// ends on the merge path (32-way searches of offs); a thread each finds the
-// tile starts inside them.  Then, for each tile, its rows' ends less its
-// first candidate go to s_end and body(xs, ys, rows, ncand) runs: the tile
-// holds rows [xs, xs + rows) and candidates [ys, ys + ncand); a candidate
-// past the last staged end belongs to row xs + rows.  Every thread of the
-// block calls this; returns the share's end row x1.
-template <int Tile, bool WholeTiles, typename Body>
-__device__ __forceinline__ int64_t merge_tiles(const RowEnds& ends,
-                                               int64_t* s_path,
-                                               int32_t* s_tx, int32_t* s_end,
-                                               Body& body) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t len = ends.len;
-  const int64_t items = (int64_t)ends.cap_in + len;
-  int64_t share = (items + gridDim.x - 1) / gridDim.x;
-  if (WholeTiles) share = (share + Tile - 1) / Tile * Tile;
-  const int64_t d0 = imin((int64_t)blockIdx.x * share, items);
-  const int64_t d1 = imin(d0 + share, items);
-
-  // 1. the share's start x0 and end x1 on the merge path
-  if (warp < 2) {
-    const int64_t d = warp == 0 ? d0 : d1;
-    const int64_t p = warp_path_search(ends, d, imax(d - len, (int64_t)0),
-                                       imin(d, (int64_t)ends.cap_in));
-    if (lane == 0) s_path[warp] = p;
-  }
-  __syncthreads();
-  const int64_t x0 = s_path[0], x1 = s_path[1];
-  const int64_t tiles = (d1 - d0 + Tile - 1) / Tile;
-
-  for (int64_t t0 = 0; t0 < tiles; t0 += kThreads) {
-    // 2. the row coordinates of tile starts t0 .. t0 + nb (the last: d1);
-    // the share's own ends are x0 and x1
-    const int nb = (int)imin((int64_t)kThreads, tiles - t0);
-    for (int i = tid; i <= nb; i += kThreads) {
-      const int64_t d = imin(d0 + (t0 + i) * Tile, d1);
-      s_tx[i] = (int32_t)(d == d0   ? x0
-                          : d == d1 ? x1
-                                    : path_search(ends, d, imax(x0, d - len),
-                                                  imin(x1, d)));
-    }
-    __syncthreads();
-    for (int t = 0; t < nb; ++t) {
-      const int64_t ds = d0 + (t0 + t) * Tile;
-      const int64_t de = imin(ds + Tile, d1);
-      const int32_t xs = s_tx[t], xe = s_tx[t + 1];
-      const int32_t ys = (int32_t)(ds - xs), ye = (int32_t)(de - xe);
-      const int rows = xe - xs;
-      for (int r = tid; r < rows; r += kThreads) s_end[r] = ends(xs + r) - ys;
-      __syncthreads();
-      body(xs, ys, rows, ye - ys);
-      __syncthreads();
-    }
-  }
-  return x1;
-}
-
-// Step 3, the probes of a tile's candidates: each warp takes a contiguous
-// part of them, 32 consecutive ones a round (their seed values read
-// coalesced, and a row's lanes searching the same segment).  A lane finds
-// its candidate's row among the staged ends, from its previous row on,
-// whose data it keeps.  Candidate c of the tile is candidate jbase + c of
-// the row numbering (its p0 is lo0[row] - offs[row] + jbase + c).  A row's
-// candidates ascend, so their lower bounds do too: a lane's search starts
-// where the warp's previous 32 left its row, not at the segment's start;
-// a candidate below the last of the previous 32 (never on a sorted seed
-// segment) searches the whole segment.  The searches of all probes advance
-// together in branch-free halving steps, kept to a few instructions: on
-// the H100 fewer instructions a candidate shortened this phase, more warps
-// in flight did not.  For each candidate, epi.begin(act, p0) runs once its
-// seed value is loaded and epi.end(act, c, r, p0, v, keep, pos) once every
-// probe is searched (act: the lane holds a candidate; r: its row in the
-// tile).  The descriptors are __grid_constant__ and indexed only by
-// unrolled constants, so no thread copies them.
-template <int NP, typename Epi>
-__device__ __forceinline__ void probe_tile(
-    const int32_t* __restrict__ s_end, int rows, int ncand, int32_t xs,
-    int32_t jbase, const int32_t* __restrict__ lo0,
-    const int32_t* __restrict__ offs, const int32_t* __restrict__ seed,
-    int32_t n0, const FillProbes& probes, int np, Epi& epi) {
-  constexpr int NPA = NP > 0 ? NP : 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per_warp = ((ncand + kWarps - 1) / kWarps + 31) / 32 * 32;
-  const int c_begin = imin(warp * per_warp, ncand);
-  const int c_end = imin(c_begin + per_warp, ncand);
-  int prev_row = -1;
-  int32_t prev_v = 0, prev_pos[NPA] = {};
-  // this lane's last row and that row's data, kept across rounds
-  int my_row = -1;
-  int32_t my_base = 0, plo[NPA] = {}, phi[NPA] = {};
-  for (int cb = c_begin; cb < c_end; cb += 32) {
-    const int c = cb + lane;
-    const bool act = c < c_end;
-    // the candidate's row: the least r with r == rows or s_end[r] > c, no
-    // earlier than this lane's last
-    int r = my_row;
-    if (act && (r < 0 || (r < rows && s_end[r] <= c))) {
-      int rlo = r + 1, rhi = rows;
-      while (rlo < rhi) {
-        const int mid = (rlo + rhi) >> 1;
-        if (s_end[mid] > c) rhi = mid; else rlo = mid + 1;
-      }
-      r = rlo;
-    }
-    if (act && r != my_row) {
-      my_row = r;
-      my_base = __ldg(lo0 + xs + r) - __ldg(offs + xs + r);
-#pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        if (q < np) {
-          plo[q] = __ldg(probes.p[q].lo + xs + r);
-          phi[q] = __ldg(probes.p[q].hi + xs + r);
-        }
-      }
-    }
-    const int32_t p0 = my_base + jbase + c;
-    const int32_t v =
-        act ? __ldg(seed + clamp_i32(p0, 0, n0 > 0 ? n0 - 1 : 0)) : INT32_MAX;
-    epi.begin(act, p0);
-    // the lower bounds in every probe segment, searched in lockstep:
-    // [pos, pos + len) holds the bound, or it is pos + len.  A candidate
-    // after the last of the previous round in its row has its positions
-    // no earlier than that one's
-    int32_t pos[NPA], len[NPA];
-    const bool carried = act && r == prev_row && v >= prev_v;
-#pragma unroll
-    for (int q = 0; q < NP; ++q) {
-      if (q < np) {
-        pos[q] = carried ? imax(prev_pos[q], plo[q]) : plo[q];
-        len[q] = act && probes.p[q].n > 0 ? imax(phi[q] - pos[q], 0) : 0;
-      }
-    }
-    for (;;) {
-      bool more = false;
-#pragma unroll
-      for (int q = 0; q < NP; ++q) more = more || (q < np && len[q] > 1);
-      if (!more) break;
-#pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        if (q < np) {
-          const int32_t half = len[q] >> 1;
-          if (level_at(probes.p[q].vals, probes.p[q].n, pos[q] + half) < v)
-            pos[q] += half;
-          len[q] -= half;
-        }
-      }
-    }
-    bool keep = act;
-#pragma unroll
-    for (int q = 0; q < NP; ++q) {
-      if (q < np) {
-        const int32_t* vals = probes.p[q].vals;
-        const int32_t n = probes.p[q].n;
-        if (len[q] == 1 && level_at(vals, n, pos[q]) < v) ++pos[q];
-        keep = keep && n > 0 && pos[q] < phi[q] && level_at(vals, n, pos[q]) == v;
-        prev_pos[q] = __shfl_sync(kFull, pos[q], 31);
-      }
-    }
-    epi.end(act, c, r, p0, v, keep, pos);
-    prev_row = __shfl_sync(kFull, r, 31);
-    prev_v = __shfl_sync(kFull, v, 31);
-  }
-}
-
-}  // namespace merge
-
-// ------------------------------------------------------------- the fill
-namespace fill {
-
-using namespace merge;
-
-// The most items a fill tile stages (16 KB of row ends): a block's share
-// of the call is one tile unless the call holds more than that a block.
-constexpr int kFillTile = 4096;
-
-// Zeros over bytes [b0, b1) of p: the 16-byte-aligned middle by uint4
-// stores, thread g of G taking every G-th, and the unaligned ends (under
-// 16 bytes each) by byte stores.
-__device__ __forceinline__ void zero_bytes(void* p, int64_t b0, int64_t b1,
-                                           int64_t g, int64_t G) {
-  if (b0 >= b1) return;
-  char* c = static_cast<char*>(p);
-  const uintptr_t a = reinterpret_cast<uintptr_t>(c);
-  const int64_t h = imin(b1, b0 + (int64_t)((16 - ((a + b0) & 15)) & 15));
-  const int64_t t = imax(h, b1 - (int64_t)((a + b1) & 15));
-  for (int64_t k = g; k < h - b0; k += G) c[b0 + k] = 0;
-  for (int64_t k = g; k < b1 - t; k += G) c[t + k] = 0;
-  uint4* mid = reinterpret_cast<uint4*>(c + h);
-  for (int64_t k = g; k < (t - h) >> 4; k += G) mid[k] = make_uint4(0, 0, 0, 0);
-}
-
-// The write epilogue: a live slot's outputs at its own index, ys + c past
-// start.
-template <int NP>
-struct Out {
-  int32_t* vals;
-  int32_t* row;
-  int32_t* p0;
-  bool* keep;
-  int32_t* pos;
-  int64_t n;
-  int np;
-  int32_t xs, ys;
-
-  __device__ __forceinline__ void begin(bool, int32_t) {}
-
-  template <int NPA>
-  __device__ __forceinline__ void end(bool act, int c, int r, int32_t p0v,
-                                      int32_t v, bool k,
-                                      const int32_t (&pos_k)[NPA]) {
-    if (!act) return;
-    const int64_t i = (int64_t)ys + c;
-    vals[i] = v;
-    row[i] = xs + r;
-    p0[i] = p0v;
-    keep[i] = k;
-#pragma unroll
-    for (int q = 0; q < NP; ++q)
-      if (q < np) pos[(int64_t)q * n + i] = pos_k[q];
-  }
-};
-
-template <int NP>
-__global__ void __launch_bounds__(kThreads, 1) frontier_fill_kernel(
+__global__ void __launch_bounds__(256) frontier_fill_kernel(
     const int32_t* __restrict__ total_c, const int32_t* __restrict__ offs,
     const int32_t* __restrict__ lo0, int32_t cap_in,
-    const int32_t* __restrict__ seed, int32_t n0,
-    const __grid_constant__ FillProbes probes, int64_t start, int64_t n,
-    int32_t* __restrict__ vals_o, int32_t* __restrict__ row_o,
-    int32_t* __restrict__ p0_o, bool* __restrict__ keep_o,
-    int32_t* __restrict__ pos_o) {
-  __shared__ int32_t s_end[kFillTile];  // the tile's row ends, less its ys
-  __shared__ int32_t s_tx[kThreads + 1];  // row coordinates of tile starts
-  __shared__ int64_t s_path[2];
-  const int np = NP < FF_MAX_PROBES ? NP : probes.count;
-  // the live slots are [start, start + live)
-  const int64_t live =
-      imax(imin((int64_t)__ldg(total_c), start + n) - start, (int64_t)0);
-
-  // 5. the dead slots [live, n): zeros, before the live slots' loads
-  const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const int64_t G = (int64_t)gridDim.x * kThreads;
-  zero_bytes(vals_o, 4 * live, 4 * n, g, G);
-  zero_bytes(row_o, 4 * live, 4 * n, g, G);
-  zero_bytes(p0_o, 4 * live, 4 * n, g, G);
-  zero_bytes(keep_o, live, n, g, G);
-#pragma unroll
-  for (int q = 0; q < NP; ++q)
-    if (q < np) zero_bytes(pos_o + (int64_t)q * n, 4 * live, 4 * n, g, G);
-
-  // 1.-4. the live slots
-  const RowEnds ends{offs, cap_in, start, (int32_t)live};
-  auto body = [&](int32_t xs, int32_t ys, int rows, int ncand) {
-    Out<NP> out{vals_o, row_o, p0_o, keep_o, pos_o, n, np, xs, ys};
-    probe_tile<NP>(s_end, rows, ncand, xs, (int32_t)(start + ys), lo0,
-                      offs, seed, n0, probes, np, out);
-  };
-  merge_tiles<kFillTile, false>(ends, s_path, s_tx, s_end, body);
-}
-
-template <int NP>
-static int launch(const int32_t* total_c, const int32_t* offs,
-                  const int32_t* lo0, int32_t cap_in, const int32_t* seed,
-                  int32_t n0, const FillProbes* probes, int64_t start,
-                  int64_t n, int32_t* vals, int32_t* row, int32_t* p0,
-                  bool* keep, int32_t* pos, cudaStream_t stream) {
-  // the grid from what the host knows: every slot live at most, and no
-  // more blocks than the card holds at once (one wave)
-  static int resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, frontier_fill_kernel<NP>, kThreads, 0);
-    resident = imax(sms * per_sm, 1);
+    const int32_t* __restrict__ seed, int32_t n0, FillProbes probes,
+    int64_t start, int64_t n, int32_t* __restrict__ vals_o,
+    int32_t* __restrict__ row_o, int32_t* __restrict__ p0_o,
+    bool* __restrict__ keep_o, int32_t* __restrict__ pos_o) {
+  const int lane = threadIdx.x & 31;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  // the live slots end at the total or the window's end
+  const int64_t live_end = min((int64_t)__ldg(total_c), start + n);
+  const int64_t jj = start + i;
+  if (jj - lane >= live_end) {  // every slot of the warp dead
+    if (i >= n) return;
+    vals_o[i] = 0;
+    row_o[i] = 0;
+    p0_o[i] = 0;
+    keep_o[i] = false;
+    for (int k = 0; k < probes.count; ++k) pos_o[(int64_t)k * n + i] = 0;
+    return;
   }
-  const int64_t blocks =
-      imin(imax(((int64_t)cap_in + n + kTile - 1) / kTile, (int64_t)1),
-           (int64_t)imin(resident, kBlocks));
-  frontier_fill_kernel<NP><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      total_c, offs, lo0, cap_in, seed, n0, *probes, start, n, vals, row, p0,
-      keep, pos);
-  return (int)cudaGetLastError();
-}
+  // Every lane of the warp runs on to its end (the grid rounds n up to
+  // whole blocks) and joins the warp's shuffles; a dead lane works as the
+  // warp's last live slot and writes 0.
+  const int64_t last = min(jj - lane + 31, live_end - 1);
+  const bool live = jj < live_end;
+  const int32_t j = (int32_t)(live ? jj : last);
+  // (the window from offs[-1] holds every end of up to 31 rows)
+  const int32_t u =
+      cap_in > 31 ? warp_upper_bound(offs, cap_in, (int32_t)(jj - lane)) : 0;
+  // w_k = offs[u - 1 + k]: w_0 <= every j of the warp, and ascending
+  const int32_t x = u - 1 + lane;
+  const int32_t w = x < 0 ? INT32_MIN : (x < cap_in ? __ldg(offs + x)
+                                                    : INT32_MAX);
+  int c = 0;  // the last k with w_k <= j
+  int32_t ub = u;
+  int32_t off = __shfl_sync(kFillFull, w, 0);
+  if (__shfl_sync(kFillFull, w, 1) <= (int32_t)last) {  // more than one row
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+      if (__shfl_sync(kFillFull, w, c + s) <= j) c += s;
+    ub = u + c;
+    off = __shfl_sync(kFillFull, w, c);
+    if (__shfl_sync(kFillFull, w, 31) <= j) {  // past the window's ends
+      int32_t lo = u + 31, hi = cap_in;
+      while (lo < hi) {
+        int32_t mid = lo + ((hi - lo) >> 1);
+        if (__ldg(offs + mid) <= j) lo = mid + 1; else hi = mid;
+      }
+      ub = lo;
+      off = __ldg(offs + ub - 1);
+    }
+  }
+  const int32_t row = ub > 0 ? ub - 1 : 0;  // the reference's clamp
+  if (ub == 0) off = __ldg(offs);
+  const int32_t p0 = __ldg(lo0 + row) + (j - off);
+  const int32_t v = __ldg(seed + clamp_i32(p0, 0, n0 > 0 ? n0 - 1 : 0));
+  bool keep = live;
 
-}  // namespace fill
+  for (int k = 0; k < probes.count; ++k) {
+    const FillProbe pr = probes.p[k];
+    int32_t plo = __ldg(pr.lo + row);
+    int32_t phi = __ldg(pr.hi + row);
+    const int32_t end = phi;
+    // While the whole warp searches one long segment inside the level, it
+    // narrows it together: 32 probes a step, each lane keeping the part
+    // between the two that bracket its value.
+    for (;;) {
+      if (!__all_sync(kFillFull, plo >= 0 && phi <= pr.n &&
+                                     phi - plo > kNarrowMin))
+        break;
+      // (every lane reaches each shuffle: none sits behind a short circuit)
+      const int32_t lo_0 = __shfl_sync(kFillFull, plo, 0);
+      const int32_t hi_0 = __shfl_sync(kFillFull, phi, 0);
+      if (!__all_sync(kFillFull, plo == lo_0 && phi == hi_0)) break;
+      const int32_t q =
+          plo + (int32_t)((int64_t)(phi - plo) * (lane + 1) / 33);
+      const int32_t at = __ldg(pr.vals + q);
+      int b = 0;  // how many probes lie below v
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1)
+        if (__shfl_sync(kFillFull, at, b + s - 1) < v) b += s;
+      if (__shfl_sync(kFillFull, at, 31) < v) b = 32;
+      const int32_t q_lo = __shfl_sync(kFillFull, q, (b + 31) & 31);
+      const int32_t q_hi = __shfl_sync(kFillFull, q, b & 31);
+      phi = b < 32 ? q_hi : phi;
+      plo = b > 0 ? q_lo + 1 : plo;
+    }
+    while (plo < phi) {
+      int32_t mid = plo + ((phi - plo) >> 1);
+      if (__ldg(pr.vals + clamp_i32(mid, 0, pr.n - 1)) < v) plo = mid + 1;
+      else phi = mid;
+    }
+    bool found = pr.n > 0 && plo < end &&
+                 __ldg(pr.vals + clamp_i32(plo, 0, pr.n - 1)) == v;
+    if (i < n) pos_o[(int64_t)k * n + i] = live ? plo : 0;
+    keep = keep && found;
+  }
+  if (i < n) {
+    vals_o[i] = live ? v : 0;
+    row_o[i] = live ? row : 0;
+    p0_o[i] = live ? p0 : 0;
+    keep_o[i] = keep;
+  }
+}
 
 // ------------------------------------------------------------- the fold
 // frontier_fold: the device terminal fold.  Replaces no Pallas kernel: the
@@ -521,7 +270,18 @@ struct FoldAnns {
 
 namespace fold {
 
-using namespace merge;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// Items of the merge a thread walks: odd, so that lanes walking a run of
+// candidates touch shared memory at an odd stride, free of bank conflicts.
+constexpr int kItems = 7;
+constexpr int kTile = kThreads * kItems;
+// The blocks of every launch, whatever the data; the carries' scratch
+// holds a slot each.  On the H100's 132 SMs that is several waves of
+// resident blocks: smaller shares even out the blocks whose items cost
+// more than others'.
+constexpr int kBlocks = 4096;
+constexpr unsigned kFull = 0xffffffffu;
 
 // Semiring ops by code: 0 (+, *) count/sum, 1 (min, +) min_plus,
 // 2 (max, min) max_min, 3 (or, and) boolean.
@@ -565,43 +325,59 @@ __device__ __forceinline__ uint8_t shfl_xor<uint8_t>(uint8_t v, int o) {
   return (uint8_t)__shfl_xor_sync(kFull, (int)v, o);
 }
 
-// Step 3's epilogue: a candidate's contribution (one times the leaf
-// annotations at its positions) and whether every probe holds it, into
-// shared memory.
-template <typename T, int NP>
-struct Contrib {
-  const FoldAnns& anns;
-  const T* ann0;
-  int op, np;
-  T one;
-  T* s_contrib;
-  uint8_t* s_keep;
-  T contrib;
+// The end of row x on the candidate axis (its inclusive scan).
+__device__ __forceinline__ int32_t row_end(const int32_t* __restrict__ offs,
+                                           int32_t total, int32_t cap_in,
+                                           int64_t x) {
+  return x + 1 < cap_in ? __ldg(offs + x + 1) : total;
+}
 
-  __device__ __forceinline__ void begin(bool act, int32_t p0) {
-    contrib = one;
-    if (ann0 != nullptr && act)
-      contrib = sr_mul(op, contrib, ann0[clamp_i32(p0, 0, anns.n[0] - 1)]);
+// The merge-path coordinate on diagonal d: the least x in [lo, hi] with
+// row_end(x) + x >= d (the row ends consumed; d - x candidates).  The
+// whole warp searches, 32 probes a step.
+__device__ __forceinline__ int64_t warp_path_search(
+    const int32_t* __restrict__ offs, int32_t total, int32_t cap_in,
+    int64_t d, int64_t lo, int64_t hi) {
+  const int lane = threadIdx.x & 31;
+  while (lo < hi) {  // lo and hi are the same in every lane
+    const int64_t p = lo + (hi - lo) * (lane + 1) / 33;  // in [lo, hi)
+    const bool right = (int64_t)row_end(offs, total, cap_in, p) + p >= d;
+    const unsigned m = __ballot_sync(kFull, right);
+    const int k = m ? __ffs(m) - 1 : 32;  // first probe on the right
+    const int64_t at = __shfl_sync(kFull, p, k & 31);
+    const int64_t before = __shfl_sync(kFull, p, (k + 31) & 31);
+    hi = k < 32 ? at : hi;
+    lo = k > 0 ? before + 1 : lo;
   }
+  return lo;
+}
 
-  template <int NPA>
-  __device__ __forceinline__ void end(bool act, int c, int, int32_t, int32_t,
-                                      bool keep, const int32_t (&pos)[NPA]) {
-#pragma unroll
-    for (int q = 0; q < NP; ++q) {
-      if (q < np) {
-        const T* an = static_cast<const T*>(anns.p[q + 1]);
-        if (an != nullptr && act)
-          contrib = sr_mul(op, contrib,
-                           an[clamp_i32(pos[q], 0, anns.n[q + 1] - 1)]);
-      }
-    }
-    if (act) {
-      s_contrib[c] = contrib;
-      s_keep[c] = keep;
-    }
+// The same coordinate by one thread's binary search.
+__device__ __forceinline__ int64_t path_search(
+    const int32_t* __restrict__ offs, int32_t total, int32_t cap_in,
+    int64_t d, int64_t lo, int64_t hi) {
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if ((int64_t)row_end(offs, total, cap_in, mid) + mid >= d) hi = mid;
+    else lo = mid + 1;
   }
-};
+  return lo;
+}
+
+template <typename I>
+__device__ __forceinline__ I imin(I a, I b) {
+  return a < b ? a : b;
+}
+
+template <typename I>
+__device__ __forceinline__ I imax(I a, I b) {
+  return a < b ? b : a;
+}
+
+__device__ __forceinline__ int32_t level_at(const int32_t* __restrict__ vals,
+                                            int32_t n, int32_t p) {
+  return __ldg(vals + clamp_i32(p, 0, n - 1));
+}
 
 template <typename T, int NP>
 __global__ void __launch_bounds__(kThreads) fold_kernel(
@@ -627,120 +403,252 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int np = NP < FF_MAX_PROBES ? NP : probes.count;
-  const RowEnds ends{offs, cap_in, 0, __ldg(total_c)};
+  const int32_t total = __ldg(total_c);
+  const int64_t items = (int64_t)cap_in + total;
+  int64_t share = (items + gridDim.x - 1) / gridDim.x;
+  share = (share + kTile - 1) / kTile * kTile;
+  const int64_t d0 = imin((int64_t)blockIdx.x * share, items);
+  const int64_t d1 = imin(d0 + share, items);
+
+  // 1. the share's start x0 and end x1 on the merge path
+  if (warp < 2) {
+    const int64_t d = warp == 0 ? d0 : d1;
+    const int64_t p = warp_path_search(offs, total, cap_in, d,
+                                       imax(d - total, (int64_t)0),
+                                       imin(d, (int64_t)cap_in));
+    if (lane == 0) s_path[warp] = p;
+  }
   if (tid == 0) {
     s_cval = zero;
     s_chits = 0;
   }
+  __syncthreads();
+  const int64_t x0 = s_path[0], x1 = s_path[1];
+  const int64_t tiles = (d1 - d0 + kTile - 1) / kTile;
   const T* ann0 = static_cast<const T*>(anns.p[0]);
 
-  auto body = [&](int32_t xs, int32_t ys, int rows, int ncand) {
-    const int tile_items = rows + ncand;
-    // this thread's items [dt, dt_end) start at (xr0, yc0) in the tile
-    const int dt = imin(tid * kItems, tile_items);
-    const int dt_end = imin(dt + kItems, tile_items);
-    int lo = imax(dt - ncand, 0), hi = imin(dt, rows);
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (s_end[mid] + mid >= dt) hi = mid; else lo = mid + 1;
+  for (int64_t t0 = 0; t0 < tiles; t0 += kThreads) {
+    // 2. the row coordinates of tile starts t0 .. t0 + nb (the last: d1)
+    const int nb = (int)imin((int64_t)kThreads, tiles - t0);
+    for (int i = tid; i <= nb; i += kThreads) {
+      const int64_t d = imin(d0 + (t0 + i) * kTile, d1);
+      s_tx[i] = (int32_t)path_search(offs, total, cap_in, d,
+                                     imax(x0, d - total), imin(x1, d));
     }
-    const int xr0 = lo, yc0 = dt - lo;
-
-    // 3. the probes
-    Contrib<T, NP> epi{anns, ann0, op, np, one, s_contrib, s_keep, one};
-    probe_tile<NP>(s_end, rows, ncand, xs, ys, lo0, offs, seed, n0,
-                      probes, np, epi);
     __syncthreads();
+    for (int t = 0; t < nb; ++t) {
+      const int64_t ds = d0 + (t0 + t) * kTile;
+      const int64_t de = imin(ds + kTile, d1);
+      const int32_t xs = s_tx[t], xe = s_tx[t + 1];
+      const int32_t ys = (int32_t)(ds - xs), ye = (int32_t)(de - xe);
+      const int rows = xe - xs, ncand = ye - ys, tile_items = rows + ncand;
+      for (int r = tid; r < rows; r += kThreads)
+        s_end[r] = row_end(offs, total, cap_in, xs + r) - ys;
+      __syncthreads();
 
-    // 4. fold this thread's items in order
-    int xr = xr0, yc = yc0;
-    T acc = zero, first = zero;
-    int32_t hits = 0, first_hits = 0;
-    bool ended = false;
-    for (int k = dt; k < dt_end; ++k) {
-      if (xr < rows && s_end[xr] <= yc) {  // row xs + xr ends here
-        if (!ended) {
-          ended = true;
-          first = acc;
-          first_hits = hits;
-        } else {
-          s_fold[xr] = acc;
-          s_supp[xr] = hits;
-        }
-        acc = zero;
-        hits = 0;
-        ++xr;
-      } else {
-        if (s_keep[yc]) {
-          acc = sr_add(op, acc, s_contrib[yc]);
-          ++hits;
-        }
-        ++yc;
+      // this thread's items [dt, dt_end) start at (xr0, yc0) in the tile
+      const int dt = imin(tid * kItems, tile_items);
+      const int dt_end = imin(dt + kItems, tile_items);
+      int lo = imax(dt - ncand, 0), hi = imin(dt, rows);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (s_end[mid] + mid >= dt) hi = mid; else lo = mid + 1;
       }
-    }
+      const int xr0 = lo, yc0 = dt - lo;
 
-    // the threads' carries (xr, acc, hits): a segmented inclusive scan
-    // by row in the warp, then across the warps in order, after the
-    // tile's carry (whose row is the tile's first, 0)
-    T inc = acc;
-    int32_t ih = hits;
+      // 3. the probes: each warp takes a contiguous part of the tile's
+      // candidates, 32 consecutive ones a round (their seed values read
+      // coalesced, and a row's lanes searching the same segment).  A row's
+      // positions ascend with its candidates, so a lane's search in each
+      // probe segment starts where the warp's previous round left its row
+      {
+        constexpr int NPA = NP > 0 ? NP : 1;
+        const int per_warp = ((ncand + kWarps - 1) / kWarps + 31) & ~31;
+        const int c_begin = imin(warp * per_warp, ncand);
+        const int c_end = imin(c_begin + per_warp, ncand);
+        int prev_row = -1;
+        int32_t prev_v = 0, prev_pos[NPA] = {};
+        // this lane's last row and that row's data, kept across rounds
+        int my_row = -1;
+        int32_t my_base = 0, plo[NPA] = {}, phi[NPA] = {};
+        for (int cb = c_begin; cb < c_end; cb += 32) {
+          const int c = cb + lane;
+          const bool act = c < c_end;
+          // the candidate's row: the least r with r == rows or s_end[r] > c,
+          // no earlier than this lane's last
+          int r = my_row;
+          if (act && (r < 0 || (r < rows && s_end[r] <= c))) {
+            int rlo = r + 1, rhi = rows;
+            while (rlo < rhi) {
+              const int mid = (rlo + rhi) >> 1;
+              if (s_end[mid] > c) rhi = mid; else rlo = mid + 1;
+            }
+            r = rlo;
+          }
+          if (act && r != my_row) {
+            my_row = r;
+            my_base = __ldg(lo0 + xs + r) - __ldg(offs + xs + r);
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int k2 = __shfl_up_sync(kFull, xr, o);
-      const T v2 = shfl_up(inc, o);
-      const int32_t h2 = __shfl_up_sync(kFull, ih, o);
-      if (lane >= o && k2 == xr) {
-        inc = sr_add(op, v2, inc);
-        ih += h2;
+            for (int q = 0; q < NP; ++q) {
+              if (q < np) {
+                plo[q] = __ldg(probes.p[q].lo + xs + r);
+                phi[q] = __ldg(probes.p[q].hi + xs + r);
+              }
+            }
+          }
+          const int32_t p0 = my_base + ys + c;
+          const int32_t v =
+              act ? __ldg(seed + clamp_i32(p0, 0, n0 > 0 ? n0 - 1 : 0))
+                  : INT32_MAX;
+          T contrib = one;
+          if (ann0 != nullptr && act)
+            contrib = sr_mul(op, contrib,
+                             ann0[clamp_i32(p0, 0, anns.n[0] - 1)]);
+          // a candidate after the last of the previous round in its row has
+          // its positions no earlier than that one's
+          const bool carried = act && r == prev_row && v >= prev_v;
+          // the lower bounds in every probe segment, searched in lockstep:
+          // [pos, pos + len) holds the bound, or it is pos + len
+          int32_t pos[NPA], len[NPA];
+#pragma unroll
+          for (int q = 0; q < NP; ++q) {
+            if (q < np) {
+              pos[q] = carried ? imax(prev_pos[q], plo[q]) : plo[q];
+              len[q] = act && probes.p[q].n > 0 ? imax(phi[q] - pos[q], 0)
+                                                : 0;
+            }
+          }
+          for (;;) {
+            bool more = false;
+#pragma unroll
+            for (int q = 0; q < NP; ++q) more = more || (q < np && len[q] > 1);
+            if (!more) break;
+#pragma unroll
+            for (int q = 0; q < NP; ++q) {
+              if (q < np) {
+                const int32_t half = len[q] >> 1;
+                if (level_at(probes.p[q].vals, probes.p[q].n,
+                             pos[q] + half) < v)
+                  pos[q] += half;
+                len[q] -= half;
+              }
+            }
+          }
+          bool keep = act;
+#pragma unroll
+          for (int q = 0; q < NP; ++q) {
+            if (q < np) {
+              const int32_t* vals = probes.p[q].vals;
+              const int32_t n = probes.p[q].n;
+              if (len[q] == 1 && level_at(vals, n, pos[q]) < v) ++pos[q];
+              keep = keep && n > 0 && pos[q] < phi[q] &&
+                     level_at(vals, n, pos[q]) == v;
+              const T* an = static_cast<const T*>(anns.p[q + 1]);
+              if (an != nullptr && act)
+                contrib = sr_mul(
+                    op, contrib, an[clamp_i32(pos[q], 0, anns.n[q + 1] - 1)]);
+              prev_pos[q] = __shfl_sync(kFull, pos[q], 31);
+            }
+          }
+          prev_row = __shfl_sync(kFull, r, 31);
+          prev_v = __shfl_sync(kFull, v, 31);
+          if (act) {
+            s_contrib[c] = contrib;
+            s_keep[c] = keep;
+          }
+        }
       }
-    }
-    if (lane == 31) {
-      s_wkey[warp] = xr;
-      s_wval[warp] = inc;
-      s_whits[warp] = ih;
-    }
-    int ek = __shfl_up_sync(kFull, xr, 1);
-    T ev = shfl_up(inc, 1);
-    int32_t eh = __shfl_up_sync(kFull, ih, 1);
-    __syncthreads();
-    int pk = 0;
-    T pv = s_cval;
-    int32_t ph = s_chits;
-    for (int w = 0; w < warp; ++w) {
-      if (pk == s_wkey[w]) {
-        pv = sr_add(op, pv, s_wval[w]);
-        ph += s_whits[w];
-      } else {
-        pv = s_wval[w];
-        ph = s_whits[w];
+      __syncthreads();
+
+      // 4. fold this thread's items in order
+      int xr = xr0, yc = yc0;
+      T acc = zero, first = zero;
+      int32_t hits = 0, first_hits = 0;
+      bool ended = false;
+      for (int k = dt; k < dt_end; ++k) {
+        if (xr < rows && s_end[xr] <= yc) {  // row xs + xr ends here
+          if (!ended) {
+            ended = true;
+            first = acc;
+            first_hits = hits;
+          } else {
+            s_fold[xr] = acc;
+            s_supp[xr] = hits;
+          }
+          acc = zero;
+          hits = 0;
+          ++xr;
+        } else {
+          if (s_keep[yc]) {
+            acc = sr_add(op, acc, s_contrib[yc]);
+            ++hits;
+          }
+          ++yc;
+        }
       }
-      pk = s_wkey[w];
+
+      // the threads' carries (xr, acc, hits): a segmented inclusive scan
+      // by row in the warp, then across the warps in order, after the
+      // tile's carry (whose row is the tile's first, 0)
+      T inc = acc;
+      int32_t ih = hits;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int k2 = __shfl_up_sync(kFull, xr, o);
+        const T v2 = shfl_up(inc, o);
+        const int32_t h2 = __shfl_up_sync(kFull, ih, o);
+        if (lane >= o && k2 == xr) {
+          inc = sr_add(op, v2, inc);
+          ih += h2;
+        }
+      }
+      if (lane == 31) {
+        s_wkey[warp] = xr;
+        s_wval[warp] = inc;
+        s_whits[warp] = ih;
+      }
+      int ek = __shfl_up_sync(kFull, xr, 1);
+      T ev = shfl_up(inc, 1);
+      int32_t eh = __shfl_up_sync(kFull, ih, 1);
+      __syncthreads();
+      int pk = 0;
+      T pv = s_cval;
+      int32_t ph = s_chits;
+      for (int w = 0; w < warp; ++w) {
+        if (pk == s_wkey[w]) {
+          pv = sr_add(op, pv, s_wval[w]);
+          ph += s_whits[w];
+        } else {
+          pv = s_wval[w];
+          ph = s_whits[w];
+        }
+        pk = s_wkey[w];
+      }
+      if (lane == 0) {
+        ek = pk;
+        ev = pv;
+        eh = ph;
+      } else if (pk == ek) {
+        ev = sr_add(op, pv, ev);
+        eh += ph;
+      }
+      // (ek, ev, eh): the carry into this thread, whose first row is xr0
+      if (ended) {
+        s_fold[xr0] = ek == xr0 ? sr_add(op, ev, first) : first;
+        s_supp[xr0] = (ek == xr0 ? eh : 0) + first_hits;
+      }
+      __syncthreads();
+      if (tid == kThreads - 1) {  // the next tile's carry: row xe
+        s_cval = pk == xr ? sr_add(op, pv, inc) : inc;
+        s_chits = pk == xr ? ph + ih : ih;
+      }
+      for (int r = tid; r < rows; r += kThreads) {
+        folded[xs + r] = s_fold[r];
+        supp[xs + r] = s_supp[r];
+      }
+      __syncthreads();
     }
-    if (lane == 0) {
-      ek = pk;
-      ev = pv;
-      eh = ph;
-    } else if (pk == ek) {
-      ev = sr_add(op, pv, ev);
-      eh += ph;
-    }
-    // (ek, ev, eh): the carry into this thread, whose first row is xr0
-    if (ended) {
-      s_fold[xr0] = ek == xr0 ? sr_add(op, ev, first) : first;
-      s_supp[xr0] = (ek == xr0 ? eh : 0) + first_hits;
-    }
-    __syncthreads();
-    if (tid == kThreads - 1) {  // the next tile's carry: row xe
-      s_cval = pk == xr ? sr_add(op, pv, inc) : inc;
-      s_chits = pk == xr ? ph + ih : ih;
-    }
-    for (int r = tid; r < rows; r += kThreads) {
-      folded[xs + r] = s_fold[r];
-      supp[xs + r] = s_supp[r];
-    }
-  };
-  const int64_t x1 =
-      merge_tiles<kTile, true>(ends, s_path, s_tx, s_end, body);
+  }
   if (tid == 0) {
     carry_row[blockIdx.x] = (int32_t)x1;
     carry_val[blockIdx.x] = s_cval;
@@ -896,10 +804,6 @@ extern "C" int frontier_fold_u8(const int32_t* lo0, const int32_t* offs,
                                   scratch, stream);
 }
 
-// total_c: the live slot count, on the device; offs, lo0: [cap_in]
-// (exclusive-scan offsets, seed segment starts); seed: [n0]; the outputs
-// [n] each, pos [probes->count, n]; every slot written.  Returns the launch
-// error, or 0.
 extern "C" int frontier_fill(const int32_t* total_c, const int32_t* offs,
                              const int32_t* lo0, int32_t cap_in,
                              const int32_t* seed, int32_t n0,
@@ -908,24 +812,12 @@ extern "C" int frontier_fill(const int32_t* total_c, const int32_t* offs,
                              int32_t* p0_o, bool* keep_o, int32_t* pos_o,
                              cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (cap_in < 1 || probes->count < 0 || probes->count > FF_MAX_PROBES)
+  if (probes->count < 0 || probes->count > FF_MAX_PROBES)
     return (int)cudaErrorInvalidValue;
-  switch (probes->count) {
-    case 0:
-      return fill::launch<0>(total_c, offs, lo0, cap_in, seed, n0, probes,
-                             start, n, vals_o, row_o, p0_o, keep_o, pos_o,
-                             stream);
-    case 1:
-      return fill::launch<1>(total_c, offs, lo0, cap_in, seed, n0, probes,
-                             start, n, vals_o, row_o, p0_o, keep_o, pos_o,
-                             stream);
-    case 2:
-      return fill::launch<2>(total_c, offs, lo0, cap_in, seed, n0, probes,
-                             start, n, vals_o, row_o, p0_o, keep_o, pos_o,
-                             stream);
-    default:
-      return fill::launch<FF_MAX_PROBES>(total_c, offs, lo0, cap_in, seed, n0,
-                                         probes, start, n, vals_o, row_o,
-                                         p0_o, keep_o, pos_o, stream);
-  }
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  frontier_fill_kernel<<<(unsigned int)blocks, threads, 0, stream>>>(
+      total_c, offs, lo0, cap_in, seed, n0, *probes, start, n, vals_o,
+      row_o, p0_o, keep_o, pos_o);
+  return (int)cudaGetLastError();
 }

@@ -337,31 +337,48 @@ def _check_fill(args):
 
 
 def _fill_args(dev, seed, cap_in, n0, max_cnt, n_probes, *, cut=0,
-               start=0, extra=1001, live=None, hub=None, descending=False):
+               start=0, extra=1001, live=None, hub=None, descending=False,
+               counts=None, base=0, seg_len=None, past_level=False,
+               band=False):
     """Seeded fill inputs: rows of up to ``max_cnt`` candidates (only the
-    ``live`` ones, if given; ``hub = (row, count)`` one long row), the
-    total ``cut`` below their sum, ``extra`` dead slots past it and the
-    window from ``start``; the first probe the whole level, the others a
-    segment a row; the seed level ascending, or descending (every row's
-    candidates then fall, and each search takes the whole segment)."""
+    ``live`` ones, if given; ``counts``, if given, every row's; ``hub =
+    (row, count)`` one long row), numbered from ``base``, the total
+    ``cut`` below their sum, ``extra`` dead slots past it and the window
+    from ``start``; the first probe the whole level (with ``past_level``
+    a segment reaching 500 values past its end; with ``band`` a level of
+    values from the middle half of the seeds' range only), the others a
+    segment a row (``seg_len`` values each, if given); the seed level
+    ascending, or descending (every row's candidates then fall, and each
+    search takes the whole segment)."""
     r = np.random.default_rng(seed)
     seed_vals = np.sort(r.choice(4 * n0, size=n0, replace=False))
     if descending:
         seed_vals = seed_vals[::-1].copy()
     lo0 = r.integers(0, n0, cap_in)
     cnt = np.minimum(r.integers(0, max_cnt + 1, cap_in), n0 - lo0)
+    if counts is not None:
+        cnt = np.asarray(counts)
+        lo0 = r.integers(0, n0 - int(cnt.max()) + 1, cap_in)
     if live is not None:
         cnt = np.where(live, cnt, 0)
     if hub is not None:
         lo0[hub[0]], cnt[hub[0]] = 0, hub[1]
-    offs = np.cumsum(cnt) - cnt
-    total = int(cnt.sum()) - cut
+    offs = np.cumsum(cnt) - cnt + base
+    total = int(cnt.sum()) + base - cut
     probes = []
     for k in range(n_probes):
         nk = int(r.integers(n0 // 2, 2 * n0))
         vk = np.sort(r.choice(4 * n0, size=nk, replace=False))
+        if k == 0 and band:
+            vk = np.sort(r.choice(np.arange(n0, 3 * n0), size=nk,
+                                  replace=False))
         if k == 0:
             lo, hi = np.zeros(cap_in), np.full(cap_in, nk)
+            if past_level:
+                lo, hi = lo + nk - 1000, hi + 500
+        elif seg_len is not None:
+            lo = r.integers(0, nk - seg_len + 1, cap_in)
+            hi = lo + seg_len
         else:
             lo = r.integers(0, nk, cap_in)
             hi = np.minimum(lo + r.integers(0, 4 * max_cnt + 2, cap_in), nk)
@@ -432,6 +449,43 @@ def test_fill_descending_seed(dev):
     previous round left its row, each takes the whole segment."""
     _check_fill(_fill_args(dev, 27, 2000, 20_000, 80, 2, cut=11,
                            descending=True))
+
+
+@pytest.mark.parametrize("case", ["one_slot_a_row", "runs_past_the_window",
+                                  "capacity_31", "capacity_32",
+                                  "offsets_from_5"])
+def test_fill_rows_from_the_warp_window(dev, case):
+    """A warp finds its first slot's row and reads the next 31 row ends
+    once: rows of one slot (32 rows a warp), live rows 40 empty rows apart
+    (slots past the window's ends search the rest of offs), capacities at
+    the window's size (no warp search at 31 rows), and offsets from 5
+    (slots before the first offset take row 0, the reference's clamp)."""
+    kw = {"one_slot_a_row": dict(cap_in=20_000, counts=np.ones(20_000,
+                                                                int)),
+          "runs_past_the_window": dict(
+              cap_in=41_000, live=np.arange(41_000) % 41 == 0,
+              counts=np.full(41_000, 3)),
+          "capacity_31": dict(cap_in=31),
+          "capacity_32": dict(cap_in=32),
+          "offsets_from_5": dict(cap_in=3000, base=5)}[case]
+    cap_in = kw.pop("cap_in")
+    _check_fill(_fill_args(dev, 29, cap_in, 30_000, 60, 2, cut=7, **kw))
+
+
+@pytest.mark.parametrize("case", ["past_the_level", "values_off_the_level",
+                                  "segment_of_64", "segment_of_65"])
+def test_fill_long_probe_segments(dev, case):
+    """A probe segment that every lane of a warp searches is narrowed by
+    the warp while it is longer than 64 values and inside the level: a
+    segment reaching past the level's end (not narrowed: the clip rules),
+    seed values below and above every value of the level (the first and
+    the last bracket), and a hub row's segments of exactly 64 and 65
+    values."""
+    kw = {"past_the_level": dict(past_level=True),
+          "values_off_the_level": dict(band=True),
+          "segment_of_64": dict(seg_len=64, hub=(7, 40_000)),
+          "segment_of_65": dict(seg_len=65, hub=(7, 40_000))}[case]
+    _check_fill(_fill_args(dev, 30, 2000, 50_000, 40, 2, cut=13, **kw))
 
 
 def test_fill_makes_no_host_sync(dev):

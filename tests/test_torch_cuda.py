@@ -392,8 +392,8 @@ def _fill_args(dev, seed, cap_in, n0, max_cnt, n_probes, *, cut=0,
 def test_fill_capped_total(dev, cut):
     """The total cut inside a row, at the end or far before it (the
     overflow clamp: rows past the total hold no live slot), rows
-    straddling tile and block edges, a slot count that is no multiple of
-    4 (the dead tail's unaligned ends)."""
+    straddling warp and block edges, a slot count that is no multiple of
+    4 (a warp with live and dead slots at the end)."""
     args = _fill_args(dev, 21, 5000, 50_000, 300, 2, cut=cut)
     assert int(args[0]) not in set(args[1].tolist())   # inside a row
     assert args[6] % 4
@@ -423,15 +423,15 @@ def test_fill_all_slots_dead(dev, where):
 
 def test_fill_hub_row_spans_blocks(dev):
     """One row of 300,000 candidates among short rows: its slots span
-    many blocks' shares."""
+    many blocks, each warp inside it narrowing its probe segments."""
     _check_fill(_fill_args(dev, 24, 4000, 400_000, 20, 2,
                            hub=(1234, 300_000), cut=1000))
 
 
 def test_fill_empty_runs_around_tile_edges(dev):
     """Rows live in bands of 1,000 among dead ones: runs of empty rows
-    cross tile and block edges, every slot's row the last with its
-    offset."""
+    cross warp and block edges and pass a warp's window of row ends,
+    every slot's row the last with its offset."""
     live = (np.arange(60_000) // 1000) % 2 == 1
     _check_fill(_fill_args(dev, 25, 60_000, 20_000, 12, 1, live=live))
 

@@ -225,8 +225,8 @@ def test_fill_random(seed):
 
 def test_fill_capped_hub_window():
     """A total capped inside a hub row, trailing empty rows and a window
-    that starts past slot 0: the slots the fill kernel's merge path
-    clamps (row ends past the total, rows ending before the window)."""
+    that starts past slot 0: rows ending past the total and before the
+    window, whose slots the fill masks or never reaches."""
     r = np.random.default_rng(11)
     n0 = 400
     seed_vals = np.sort(r.choice(4 * n0, size=n0, replace=False))

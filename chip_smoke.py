@@ -75,7 +75,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    logits (every p99 row, 4,096 bulk rows) and retrieval scores held
    against a float64 oracle on the card (the pairwise O(F^2)
    interaction) within ``rtol=1e-5, atol=1e-6``, every logit finite;
-8. every kernel is run again on the largest inputs its path gave it and
+8. relational serving path, with every launch counter set to 0 just
+   before and read just after: ``QueryServer()`` on the card serves the
+   full-size graph as a tenant; ``triangle_at`` and ``triangle_list_at``
+   (prepared queries anchored at a bind parameter) run over its 64
+   highest-degree vertices one at a time (cold and warm wall, p50/p99;
+   no plan search after warm-up), then through ``run_batch`` and through
+   ``submit`` + ``drain``: every batched answer equals the sequential
+   one, 4 of each equal the host oracle, the batched fill and fold launch
+   once a batched step and chunk, and ``triangle_at`` must batch; a
+   second tenant, ``powerlaw_graph(2000, 12, 2.0)``, under a byte budget
+   below the two tenants' model bytes, serves ``4clique_at`` (batched)
+   and ``lollipop_at`` (the sequential loop) over its 16 highest-degree
+   vertices, evicts the full tenant (``torch.cuda.memory_allocated``
+   printed around it), whose re-query equals its first answer, and
+   ``check_store`` holds the memory model against the live bytes;
+9. every kernel is run again on the largest inputs its path gave it and
    held against its plain PyTorch version — bit for bit (``materialize``
    up to its total, two launches equal, with the closing fetch of the
    whole buffer and of the total's records timed, and three more cases:
@@ -123,7 +138,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    timed apart (CUDA events), for the all-zero matrix of the same
    size (count 0), and for its worst case, a random 0/1 8,192^2 matrix
    at density 0.5 (exact against the float64 plain version, two launches
-   equal, timed beside ``torch.matmul``).
+   equal, timed beside ``torch.matmul``); the batched fill and fold on
+   their largest serving calls, bit-equal, two launches equal, timed
+   beside the same rows launched as B single-query calls.
 
 The last three lines of standard output are the kernel table (JSON), the
 card's ``name, power.limit`` from nvidia-smi, and the result line
@@ -219,6 +236,29 @@ RECSYS_KERNELS = {
     "fm_interaction": ("src/repro_torch/csrc/fm_interaction.cu",
                        "src/repro/kernels/fm_interaction/kernel.py:33"),
 }
+# the relational serving path (phase 8): prepared queries anchored at a
+# bind-parameter vertex, re-bound to the full-size graph's highest-degree
+# vertices as benchmarks/serve_bench.py picks them
+SERVE_BINDINGS = 64
+SERVE_HOST_BINDINGS = 4        # of each query, held against the host oracle
+SERVE_SMALL_BINDINGS = 16      # the second tenant's highest-degree vertices
+SERVE_ALIASES = ("S", "T", "U", "X", "Y", "R2", "S2", "T2")
+SERVE_QUERIES = {
+    "triangle_at": "C(;w:long) :- R(0,y),S(y,z),T(0,z); w=<<COUNT(*)>>.",
+    "triangle_list_at": "L(y,z) :- R(0,y),S(y,z),T(0,z).",
+    "4clique_at": ("C(;w:long) :- R(0,y),S(y,z),T(0,z),U(0,a),X(y,a),"
+                   "Y(z,a); w=<<COUNT(*)>>."),
+    "lollipop_at": ("C(;w:long) :- R(0,y),S(y,z),T(0,z),U(0,a); "
+                    "w=<<COUNT(*)>>."),
+}
+SERVE_KERNELS = {
+    # the reference's batched bag program vmaps the fill's and the fold's
+    # plain versions
+    "frontier_fill_batched": ("src/repro_torch/csrc/frontier_fill.cu",
+                              "src/repro/kernels/frontier_fill/kernel.py:45"),
+    "frontier_fold_batched": ("src/repro_torch/csrc/frontier_fill.cu",
+                              "src/repro/core/backend.py:827"),
+}
 
 
 def spmv_ell_f64(cols, vals, row_ptr, x):
@@ -253,9 +293,11 @@ def check(cond, msg):
 
 class Capture:
     """Wrap a kernel wrapper to keep the arguments of its largest call and
-    count its calls with work (size above 0)."""
+    count its calls with work (size above 0).  With ``copy`` it keeps
+    copies of the tensors, so the path's own (a tenant's levels) can be
+    freed."""
 
-    def __init__(self, module, attr, size_of):
+    def __init__(self, module, attr, size_of, copy=False):
         self.module, self.attr = module, attr
         self.orig = getattr(module, attr)
         self.size, self.args, self.calls = -1, None, 0
@@ -264,13 +306,20 @@ class Capture:
             n = size_of(*args)
             self.calls += n > 0
             if n > self.size:
-                self.size, self.args = n, args
+                self.size, self.args = n, _copied(args) if copy else args
             return self.orig(*args)
 
         setattr(module, attr, wrapped)
 
     def restore(self):
         setattr(self.module, self.attr, self.orig)
+
+
+def _copied(x):
+    """``x`` with every tensor in it (tuples walked) cloned."""
+    if isinstance(x, tuple):
+        return tuple(_copied(v) for v in x)
+    return x.clone() if hasattr(x, "clone") else x
 
 
 def card_line():
@@ -812,28 +861,134 @@ def materialize_cases(args, mat_ops, plain, time_stats, torch):
             f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
 
 
-def fold_work(args, torch):
-    """Candidates, bytes and int32 operations of one ``frontier_fold``
-    call: each per-row array, level, annotation and output once; each
-    candidate's seed read and one lockstep search (bit_length(n_k) steps)
-    a probe, 4 operations a step."""
-    lo0, offs, total, seed, probes, anns, sr = args
-    cands = int(total)
-    steps = sum(max(1, int(v.shape[0]).bit_length()) for v, _l, _h in probes)
-    sr_bytes = torch.empty((), dtype=sr.dtype).element_size()
-    moved = (sum(t.numel() * t.element_size()
-                 for t in (lo0, offs, total, seed))
-             + sum(t.numel() * t.element_size() for p in probes for t in p)
-             + sum(a.numel() * a.element_size() for a in anns
-                   if a is not None)
-             + int(lo0.shape[0]) * (4 + sr_bytes))
-    return cands, moved, cands * (steps + 2) * 4
+def bit_length(x, torch):
+    """``int.bit_length`` of each element of the int64 tensor ``x``
+    (0 for 0), on x's device."""
+    bits = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        big = (x >> s) > 0
+        bits += big * s
+        x = torch.where(big, x >> s, x)
+    return bits + (x > 0)
+
+
+def nbytes_of(*ts):
+    """The bytes of the tensors ``ts``."""
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def probe_work(counts, probes, torch):
+    """Search steps and probe-value bytes for ``counts[r]`` candidates of
+    row ``r`` (int64, the per-row bounds flattened alike): each candidate
+    searches its row's segment of each probe level, bit_length(L) steps
+    (at least 1) for a segment of L values, reading at most one value a
+    step; a level's values count at most once."""
+    steps, moved = 0, 0
+    for v, lo, hi in probes:
+        seg = (hi.reshape(-1).long() - lo.reshape(-1).long()).clamp(min=0)
+        s = int((counts * bit_length(seg, torch).clamp(min=1)).sum())
+        steps += s
+        moved += min(int(v.shape[0]), s) * v.element_size()
+    return steps, moved
 
 
 def fold_counts(args, torch):
-    """Each row's candidates in a ``frontier_fold`` call."""
+    """Each row's candidates in a ``frontier_fold`` call (``[cap_in]``,
+    or ``[B, cap_in]`` for ``frontier_fold_batched``)."""
     offs, total = args[1], args[2]
-    return torch.cat([offs[1:], total.reshape(1)]) - offs
+    return torch.cat([offs[..., 1:], total.unsqueeze(-1)], -1) - offs
+
+
+def fold_work(args, torch):
+    """Candidates, bytes and int32 operations of one ``frontier_fold``
+    call (or ``frontier_fold_batched``, its per-row arrays ``[B, cap_in]``
+    and totals ``[B]``), as this call's data needs them: each per-row
+    array and output once; a seed value and each leaf annotation at most
+    once, and no more of them than the candidates; the probes as
+    :func:`probe_work` counts them; 4 operations a search step, and 2
+    steps a candidate for its seed read and its reduction."""
+    lo0, offs, total, seed, probes, anns, sr = args
+    counts = fold_counts(args, torch).reshape(-1).long().clamp(min=0)
+    cands = int(counts.sum())
+    steps, probe_bytes = probe_work(counts, probes, torch)
+    sr_bytes = torch.empty((), dtype=sr.dtype).element_size()
+    moved = (nbytes_of(lo0, offs, total)
+             + min(cands, int(seed.shape[0])) * seed.element_size()
+             + sum(nbytes_of(lo, hi) for _v, lo, hi in probes) + probe_bytes
+             + sum(min(cands, a.numel()) * a.element_size() for a in anns
+                   if a is not None)
+             + lo0.numel() * (4 + sr_bytes))
+    return cands, moved, (cands * 2 + steps) * 4
+
+
+def per_query(probes, b):
+    """Query ``b``'s probes out of a batch's ``[B, cap_in]`` bounds."""
+    return tuple((v, lo[b], hi[b]) for v, lo, hi in probes)
+
+
+def fill_work(total_c, offs, lo0, seed, probes, start, n, torch):
+    """Live slots, bytes and int32 operations of one ``frontier_fill``
+    call over slots ``[start, start + n)`` (or ``frontier_fill_batched``,
+    ``[B, cap_in]`` rows, ``[B]`` totals, ``start`` 0), as this call's
+    data needs them: each per-row array once; a seed value at most once,
+    and no more of them than the live slots; the probes as
+    :func:`probe_work` counts them over each row's live slots; every
+    output slot written once; each live slot's row search
+    (bit_length(cap_in) steps) and probe searches, 4 operations a step."""
+    cap_in = int(offs.shape[-1])
+    end = (total_c.long().clamp(max=start + n)).unsqueeze(-1)
+    first = offs.long().clamp(min=start)
+    last = torch.cat([offs[..., 1:].long(), end], -1)
+    counts = (torch.minimum(last, end) - torch.minimum(first, end)
+              ).clamp(min=0).reshape(-1)
+    live = int(counts.sum())
+    steps, probe_bytes = probe_work(counts, probes, torch)
+    queries = offs.numel() // cap_in
+    moved = (nbytes_of(total_c, offs, lo0)
+             + min(live, int(seed.shape[0])) * seed.element_size()
+             + sum(nbytes_of(lo, hi) for _v, lo, hi in probes) + probe_bytes
+             + queries * n * (3 * 4 + 1 + 4 * len(probes)))
+    ops = (live * max(1, cap_in.bit_length()) + steps) * 4
+    return live, moved, ops
+
+
+def fill_batched_work(args, fill_ops, torch):
+    """The shape line, bytes and int32 operations of one
+    ``frontier_fill_batched`` call (:func:`fill_work`'s count), and a
+    callable launching the same rows as B single-query ``fill`` calls."""
+    total_c, offs, lo0, seed, probes, n = args
+    batch, cap_in = (int(x) for x in offs.shape)
+    live, moved, ops = fill_work(total_c, offs, lo0, seed, probes, 0, n,
+                                 torch)
+    shape = (f"batch={batch} slots={n} a query, live={live} "
+             f"(largest {int(total_c.clamp(max=n).max())}) cap_in={cap_in} "
+             f"n0={int(seed.shape[0])} probes={len(probes)}")
+
+    def singles():
+        outs = [fill_ops.fill(total_c[b], offs[b], lo0[b], seed,
+                              per_query(probes, b), 0, n)
+                for b in range(batch)]
+        return [o[:4] + tuple(o[4]) for o in outs]
+
+    return shape, moved, ops, singles
+
+
+def fold_batched_work(args, fill_ops, torch):
+    """``fill_batched_work`` for one ``frontier_fold_batched`` call
+    (:func:`fold_work`'s count)."""
+    lo0, offs, total, seed, probes, anns, sr = args
+    batch, cap_in = (int(x) for x in offs.shape)
+    cands, moved, ops = fold_work(args, torch)
+    shape = (f"batch={batch} rows={cap_in} a query, candidates={cands} "
+             f"(largest query {int(total.max())}) n0={int(seed.shape[0])} "
+             f"probes={len(probes)} semiring={sr.name}")
+
+    def singles():
+        return [fill_ops.fold(lo0[b], offs[b], total[b], seed,
+                              per_query(probes, b), anns, sr)
+                for b in range(batch)]
+
+    return shape, moved, ops, singles
 
 
 def fold_equal(got, want, sr, torch):
@@ -904,9 +1059,9 @@ def fold_cases(args, fill_ops, plain, time_stats, torch):
             f"equal to the plain "
             f"version, two launches equal; kernel {ms:.4f} ms (CUDA events, "
             f"L2 flushed, median of 5), bound "
-            f"{ops / INT32_OPS_PER_S * 1e3:.4f}"
-            f" ms (operations), bytes alone "
-            f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved} bytes)")
+            f"{max(moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3:.4f}"
+            f" ms (bytes {moved / HBM_BYTES_PER_S * 1e3:.4f} ms, {moved} "
+            f"bytes; operations {ops / INT32_OPS_PER_S * 1e3:.4f} ms)")
 
 
 def fill_hub_case(device, torch, n=1_000_000):
@@ -1492,6 +1647,257 @@ def recsys_path(torch):
     return launches
 
 
+def same_exact(got, want):
+    """Two query results equal as they are: variables, every column in
+    order, the annotation."""
+    import numpy as np
+    if got.vars != want.vars:
+        return False
+    if any(not np.array_equal(np.asarray(got.columns[v]),
+                              np.asarray(want.columns[v]))
+           for v in got.vars):
+        return False
+    if want.annotation is None:
+        return got.annotation is None
+    return got.annotation is not None and np.array_equal(
+        np.asarray(got.annotation), np.asarray(want.annotation))
+
+
+def shown(res):
+    return f"{res.num_rows} rows" if res.vars else str(int(res.scalar()))
+
+
+def serving_path(src, dst, g, torch):
+    """Phase 8, the relational serving path: a ``QueryServer`` on the card
+    with the full-size graph as tenant ``full``; ``triangle_at`` and
+    ``triangle_list_at`` prepared, run one binding at a time over the
+    ``SERVE_BINDINGS`` highest-degree vertices (cold, warm, p50/p99; no
+    plan search after warm-up), then the same bindings through
+    ``run_batch`` and through ``submit`` + ``drain``, every answer equal
+    to the sequential one and ``SERVE_HOST_BINDINGS`` of them to the host
+    oracle; the batched fill and fold launch once a batched step and
+    chunk.  Then a second tenant, ``powerlaw_graph(2000, 12, 2.0)``,
+    under a byte budget below the two tenants' model bytes:
+    ``4clique_at`` batches, ``lollipop_at`` takes the sequential loop,
+    the full tenant is evicted and its re-query equals its first answer,
+    and ``check_store`` holds the model against the live bytes.  Returns
+    the phase's kernel launches and the captures of the batched fill and
+    fold."""
+    import numpy as np
+    from repro_torch.analysis.memory_budget import (check_store,
+                                                    trie_device_bytes)
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.executor import BagResultCache
+    from repro_torch.data.graphs import edge_list, powerlaw_graph
+    from repro_torch.kernels import common
+    from repro_torch.kernels.frontier_fill import ops as fill_ops
+    from repro_torch.serve import QueryServer
+
+    t_phase = time.perf_counter()
+    srv = QueryServer()
+    stats = srv.backend.stats
+    full = srv.load_graph("full", "R", src, dst)
+    for al in SERVE_ALIASES:
+        srv.alias("full", al, "R")
+    hubs = [int(v) for v in np.argsort(g.degrees)[::-1][:SERVE_BINDINGS]]
+    log(f"[serve] tenant full: powerlaw_graph{FULL_GRAPH}, {len(src)} "
+        f"edges; bindings: the {len(hubs)} highest-degree vertices "
+        f"(degrees {int(g.degrees[hubs[0]])} .. "
+        f"{int(g.degrees[hubs[-1]])})")
+    host = Engine(backend="numpy")
+    host.load_edges("R", src, dst)
+    for al in SERVE_ALIASES:
+        host.alias(al, "R")
+    captures = {
+        "frontier_fill_batched": Capture(
+            fill_ops, "fill_batched", lambda t, o, *a: o.shape[0] * a[-1],
+            copy=True),
+        "frontier_fold_batched": Capture(
+            fill_ops, "fold_batched", lambda lo0, *a: lo0.numel(),
+            copy=True),
+    }
+    common.reset_launches()
+
+    def launched():
+        return dict(common.LAUNCHES)
+
+    def delta(before, after):
+        return {k: after.get(k, 0) - before.get(k, 0) for k in after
+                if after.get(k, 0) != before.get(k, 0)}
+
+    def batch_checks(name, d, ld, seq, batched, label):
+        check(len(batched) == len(seq) and all(
+            same_exact(b, s) for b, s in zip(batched, seq)),
+            f"{name} ({label}): a batched answer differs from the "
+            "sequential one")
+        if not d.get("pipeline.batched_launches"):
+            return False
+        # nothing fell back: every launch of this call was batched, each
+        # batched step one launch of its kernel
+        check(d.get("pipeline.launches", 0) == d["pipeline.batched_launches"]
+              == d.get("extend.closing_syncs", 0),
+              f"{name} ({label}): launches {d}")
+        check(ld.get("frontier_fill_batched", 0)
+              == d.get("extend.pipeline_extends", 0),
+              f"{name} ({label}): {ld.get('frontier_fill_batched', 0)} "
+              f"batched fills for {d.get('extend.pipeline_extends', 0)} "
+              "batched extend steps")
+        check(ld.get("frontier_fold_batched", 0)
+              == d.get("pipeline.device_folds", 0),
+              f"{name} ({label}): {ld.get('frontier_fold_batched', 0)} "
+              f"batched folds for {d.get('pipeline.device_folds', 0)} "
+              "batched fold steps")
+        check(not ld.get("frontier_fill", 0) and not ld.get("frontier_fold",
+                                                            0),
+              f"{name} ({label}): single-query launches in a batch: {ld}")
+        return True
+
+    firsts, which = {}, {}
+    for name in ("triangle_at", "triangle_list_at"):
+        text = SERVE_QUERIES[name]
+        pq = srv.prepare("full", text)
+        eng = srv.engine("full")
+        t0 = time.perf_counter()
+        first = pq.run(hubs[0])
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        eng.bag_cache = BagResultCache()
+        t0 = time.perf_counter()
+        warm_res = pq.run(hubs[0])
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        check(same_exact(warm_res, first), f"{name}: warm run differs")
+        firsts[name] = first
+        searches = stats.get("compile.plan_searches", 0)
+        eng.bag_cache = BagResultCache()
+        lat, seq = [], []
+        for v in hubs:
+            t0 = time.perf_counter()
+            seq.append(pq.run(v))
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        check(stats.get("compile.plan_searches", 0) == searches,
+              f"{name}: a plan search after warm-up")
+        p50, p99 = np.percentile(lat, [50, 99])
+        log(f"[serve] {name} point queries: cold {cold:.4f} s, warm "
+            f"{warm:.4f} s (binding {hubs[0]}: {shown(first)}); "
+            f"{len(hubs)} bindings one at a time: p50 {p50:.4f} s, p99 "
+            f"{p99:.4f} s, total {sum(lat):.3f} s; plan searches after "
+            f"warm-up 0")
+
+        s0, l0 = dict(stats), launched()
+        t0 = time.perf_counter()
+        batched = pq.run_batch(hubs)
+        torch.cuda.synchronize()
+        bwall = time.perf_counter() - t0
+        d, ld = delta(s0, dict(stats)), delta(l0, launched())
+        which[name] = batch_checks(name, d, ld, seq, batched, "run_batch")
+        log(f"[serve] {name} run_batch of {len(hubs)}: {bwall:.4f} s "
+            f"({len(hubs) / bwall:.1f} queries/s; one at a time "
+            f"{len(hubs) / sum(lat):.1f}); batched={which[name]}; "
+            f"counters {json.dumps(d, sort_keys=True)}; launches "
+            f"{json.dumps(ld, sort_keys=True)}")
+
+        s0, l0 = dict(stats), launched()
+        t0 = time.perf_counter()
+        tickets = [srv.submit("full", text, v) for v in hubs]
+        srv.drain()
+        torch.cuda.synchronize()
+        dwall = time.perf_counter() - t0
+        d, ld = delta(s0, dict(stats)), delta(l0, launched())
+        check(all(t.done for t in tickets), f"{name}: a ticket not done")
+        batch_checks(name, d, ld, seq, [t.result for t in tickets],
+                     "submit + drain")
+        log(f"[serve] {name} submit + drain of {len(hubs)}: {dwall:.4f} s; "
+            f"counters {json.dumps(d, sort_keys=True)}")
+
+        hq = host.prepare(text)
+        t0 = time.perf_counter()
+        spread = len(hubs) // SERVE_HOST_BINDINGS
+        for v, res in list(zip(hubs, seq))[::spread]:
+            want = hq.run(v)
+            check(same_result(res, want),
+                  f"{name} at {v}: {shown(res)} on the card, {shown(want)} "
+                  "on the host")
+        log(f"[serve] {name}: bindings {hubs[::spread]} equal to the host "
+            f"oracle ({time.perf_counter() - t0:.1f} s), answers "
+            f"{[shown(r) for r in seq[::spread]]}")
+    check(which["triangle_at"], "triangle_at did not batch")
+    del host
+
+    # ---- a second tenant under a byte budget below both tenants' bytes
+    full_bytes = trie_device_bytes(full)
+    report = check_store(srv)
+    log(f"[serve] check_store before the second tenant: "
+        f"{json.dumps(report, sort_keys=True)}")
+    srv.store.capacity_bytes = full_bytes
+    g2 = powerlaw_graph(*SMALL_GRAPH, seed=0)
+    s2, d2 = edge_list(g2)
+    srv.load_graph("small", "R", s2, d2)
+    for al in SERVE_ALIASES:
+        srv.alias("small", al, "R")
+    host2 = Engine(backend="numpy")
+    host2.load_edges("R", s2, d2)
+    for al in SERVE_ALIASES:
+        host2.alias(al, "R")
+    small_hubs = [int(v) for v in
+                  np.argsort(g2.degrees)[::-1][:SERVE_SMALL_BINDINGS]]
+    mem = {"before": torch.cuda.memory_allocated()}
+    for name in ("4clique_at", "lollipop_at"):
+        text = SERVE_QUERIES[name]
+        s0, l0 = dict(stats), launched()
+        tickets = [srv.submit("small", text, v) for v in small_hubs]
+        srv.drain()
+        torch.cuda.synchronize()
+        if "after" not in mem:
+            mem["after"] = torch.cuda.memory_allocated()
+        d, ld = delta(s0, dict(stats)), delta(l0, launched())
+        pq = srv.prepare("small", text)
+        seq = [pq.run(v) for v in small_hubs]
+        which[name] = batch_checks(name, d, ld, seq,
+                                   [t.result for t in tickets],
+                                   "submit + drain")
+        hq = host2.prepare(text)
+        for v, res in list(zip(small_hubs, seq))[:SERVE_HOST_BINDINGS]:
+            check(same_result(res, hq.run(v)),
+                  f"{name} at {v} on the small graph differs from the host")
+        log(f"[serve] {name} on tenant small, {len(small_hubs)} bindings "
+            f"through submit + drain: batched={which[name]}; equal to the "
+            f"sequential answers and {SERVE_HOST_BINDINGS} to the host "
+            f"({[shown(r) for r in seq[:SERVE_HOST_BINDINGS]]}); counters "
+            f"{json.dumps(d, sort_keys=True)}")
+    check(which["4clique_at"], "4clique_at did not batch on tenant small")
+    check(not which["lollipop_at"], "lollipop_at batched")
+    evictions = srv.counters.get("store.evictions", 0)
+    check(evictions >= 1 and not srv.store.resident("full"),
+          f"no eviction of tenant full under {full_bytes} bytes: "
+          f"{srv.counters}")
+    log(f"[serve] byte budget {full_bytes} (tenant full's model bytes): "
+        f"tenant full evicted ({evictions} eviction(s)); "
+        f"torch.cuda.memory_allocated {mem['before']} before the second "
+        f"tenant's first drain, {mem['after']} after it "
+        f"({mem['before'] - mem['after']} freed)")
+    report = check_store(srv)
+    again = srv.run("full", SERVE_QUERIES["triangle_at"], hubs[0])
+    check(same_exact(again, firsts["triangle_at"]),
+          "tenant full's re-query after its eviction differs")
+    report2 = check_store(srv)
+    log(f"[serve] re-query of tenant full after eviction: "
+        f"{shown(again)}, equal to its first answer; store.evictions "
+        f"{srv.counters.get('store.evictions', 0)}; check_store (model "
+        f"against live) {json.dumps(report, sort_keys=True)}, after the "
+        f"re-query {json.dumps(report2, sort_keys=True)}")
+    launches = launched()
+    for c in captures.values():
+        c.restore()
+    summary = srv.dispatch_summary()
+    log(f"[serve] batched: {json.dumps(which, sort_keys=True)}; launches "
+        f"{json.dumps(launches, sort_keys=True)}")
+    log(f"[serve] dispatch_summary {json.dumps(summary, sort_keys=True)}")
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, captures
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1516,7 +1922,10 @@ def main():
     from repro_torch.kernels.fm_interaction.ref import (fm_interaction_ref,
                                                         fm_interaction_scale)
     from repro_torch.kernels.frontier_fill import ops as fill_ops
-    from repro_torch.kernels.frontier_fill.ref import fill_ref, fold_ref
+    from repro_torch.kernels.frontier_fill.ref import (fill_batched_ref,
+                                                       fill_ref,
+                                                       fold_batched_ref,
+                                                       fold_ref)
     from repro_torch.kernels.materialize import ops as mat_ops
     from repro_torch.kernels.materialize.ref import (HEADER, buffer_total,
                                                      materialize_ref)
@@ -1542,12 +1951,13 @@ def main():
             log(f"[build] {name}: {line}")
     fill_lines = [line for line in ptxas_lines(reports.get("frontier_fill",
                                                            ""))
-                  if "frontier_fill_kernel" in line]
-    check("frontier_fill" not in reports or fill_lines,
-          "no ptxas line of frontier_fill_kernel")
+                  if line.startswith(("frontier_fill_kernel",
+                                      "frontier_fill_batched_kernel"))]
+    check("frontier_fill" not in reports or len(fill_lines) == 2,
+          "no ptxas line of frontier_fill_kernel or of its batched form")
     for line in fill_lines:
         check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
-              "loads" in line, f"frontier_fill_kernel spills: {line}")
+              "loads" in line, f"the fill spills: {line}")
 
     # ------------------------------------------------------ 2. main path
     captures = {
@@ -1677,12 +2087,21 @@ def main():
     captures["fm_interaction"].restore()
     for name in RECSYS_KERNELS:
         check(fm_launches.get(name, 0) > 0, f"kernel {name} never launched")
+    # ------------------------------------------ 8. relational serving path
+    serve_launches, serve_captures = serving_path(src, dst, g, torch)
+    captures.update(serve_captures)
+    for name in SERVE_KERNELS:
+        check(serve_launches.get(name, 0) > 0, f"kernel {name} never "
+                                               "launched")
+        check(serve_launches[name] == captures[name].calls,
+              f"{name}: {serve_launches[name]} launches for "
+              f"{captures[name].calls} calls with work, not one a call")
     path_launches = collections.Counter()
     for counts in (launches, rec_launches, mat_launches, tri_launches,
-                   fm_launches):
+                   fm_launches, serve_launches):
         path_launches.update(counts)
 
-    # ---------------------------------- 8. kernels against plain versions
+    # ---------------------------------- 9. kernels against plain versions
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def time_stats(fn, reps, hold=True):
@@ -1721,14 +2140,15 @@ def main():
         return err
 
     def flat(name, out):
-        if name == "frontier_fill":
+        if name in ("frontier_fill", "frontier_fill_batched"):
             return out[:4] + tuple(out[4])
         return out if isinstance(out, tuple) else (out,)
 
     rows = []
     for name, (source, replaces) in {**KERNELS, **RECURSION_KERNELS,
                                      **MAT_KERNELS, **TRI_KERNELS,
-                                     **RECSYS_KERNELS}.items():
+                                     **RECSYS_KERNELS,
+                                     **SERVE_KERNELS}.items():
         args = captures[name].args
         library_ms = None
         reps, plain_reps = 20, 5
@@ -1738,14 +2158,7 @@ def main():
             total_c, offs, lo0, seed, probes, start, n = args
             kern = lambda: fill_ops.fill(*args)                   # noqa: E731
             plain = lambda: fill_ref(*args)                       # noqa: E731
-            live = int(total_c)
-            steps = (max(1, int(offs.shape[0]).bit_length())
-                     + sum(max(1, int(v.shape[0]).bit_length())
-                           for v, _l, _h in probes))
-            moved = (nbytes(total_c, offs, lo0, seed)
-                     + sum(nbytes(*p) for p in probes)
-                     + n * (3 * 4 + 1 + 4 * len(probes)))
-            ops = min(live, n) * steps * 4
+            live, moved, ops = fill_work(*args, torch)
             shape = (f"slots={n} live={live} cap_in={int(offs.shape[0])} "
                      f"n0={int(seed.shape[0])} probes={len(probes)}")
             fill_cases(args, fill_ops, fill_ref, time_stats, flat, torch)
@@ -1759,6 +2172,16 @@ def main():
                      f"semiring={sr.name}; bytes alone "
                      f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
             fold_cases(args, fill_ops, fold_ref, time_stats, torch)
+        elif name == "frontier_fill_batched":
+            kern = lambda: fill_ops.fill_batched(*args)           # noqa: E731
+            plain = lambda: fill_batched_ref(*args)               # noqa: E731
+            shape, moved, ops, singles = fill_batched_work(args, fill_ops,
+                                                           torch)
+        elif name == "frontier_fold_batched":
+            kern = lambda: fill_ops.fold_batched(*args)           # noqa: E731
+            plain = lambda: fold_batched_ref(*args)               # noqa: E731
+            shape, moved, ops, singles = fold_batched_work(args, fill_ops,
+                                                           torch)
         elif name == "bitset_intersect":
             kern = lambda: bitset_ops.bitset_pair_count(*args)    # noqa: E731
             plain = lambda: bitset_pair_count_ref(*args)          # noqa: E731
@@ -1909,6 +2332,24 @@ def main():
                       + triangle_mm_passes(a, tri_ops, time_stats, torch))
             triangle_mm_cases(a, tri_ops, triangle_count_dense_ref, time_stats,
                               torch)
+        elif name in SERVE_KERNELS:
+            got = flat(name, kern())
+            err = max_err(got, flat(name, plain()))
+            check(err == 0, f"{name} differs from its plain version (max "
+                            f"|err| {err})")
+            check(all(torch.equal(x, y) for x, y in
+                      zip(got, flat(name, kern()))),
+                  f"{name}: two launches differ")
+            single_out = singles()
+            check(all(torch.equal(torch.stack([o[i] for o in single_out]),
+                                  x) for i, x in
+                      enumerate(got[:len(single_out[0])])),
+                  f"{name}: the single-query calls differ from the batch")
+            single_ms = time_stats(singles, 5)[0]
+            shape += (f"; bit-equal, two launches equal; the same rows as "
+                      f"{int(args[1].shape[0])} single-query calls "
+                      f"{single_ms:.4f} ms (CUDA events around the host's "
+                      f"loop of launches, median of 5), equal to the batch")
         elif name == "fm_interaction":
             got, want = kern(), plain()
             check(torch.equal(got, kern()), "fm_interaction: two launches "
@@ -1944,7 +2385,8 @@ def main():
         })
         log(f"[kernel] {name}: {shape}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {max(b_bytes, b_ops) * 1e3:.2f} us "
-            f"({moved} bytes)")
+            f"(by {rows[-1]['bound_by']}; {moved} bytes {b_bytes * 1e3:.2f} "
+            f"us, operations {b_ops * 1e3:.2f} us)")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -282,16 +282,42 @@ class DeviceBackend(ExecBackend):
         the closing ``pipeline_land`` stays the only transfer.
         """
         self.stats["pipeline.launches"] += 1
+        return DeviceFrontier(**self._run_program(cursors0, ann0, steps))
+
+    def run_bag_batched(self, cursors0: Dict[int, np.ndarray],
+                        ann0: Optional[np.ndarray],
+                        steps: Sequence[Tuple]) -> "BatchedFrontier":
+        """Execute B same-shape bag instances as ONE batched launch.
+
+        ``cursors0`` maps each pre-bound atom to a ``[B, 1]`` cursor
+        stack, one row per query.  The chain is lowered through the same
+        ``_lower_bag`` as the single-query path and run by the same
+        ``_bag_program`` with a leading batch axis: the operand arrays
+        (trie levels, shared by every query) stay unbatched, and each
+        fill and fold step is one launch of the batched kernel for all B
+        queries.  ``pipeline.launches`` and ``pipeline.batched_launches``
+        rise by one, ``pipeline.batched_queries`` by B;
+        ``pipeline_land_batched`` is the single closing transfer."""
+        b = int(next(iter(cursors0.values())).shape[0])
+        self.stats["pipeline.launches"] += 1
+        self.stats["pipeline.batched_launches"] += 1
+        self.stats["pipeline.batched_queries"] += b
+        return BatchedFrontier(batch=b, **self._run_program(
+            cursors0, ann0, steps, batch=b))
+
+    def _run_program(self, cursors0, ann0, steps, batch=None) -> Dict:
+        """Lower and run one bag chain; the frontier's fields."""
         prog_t, arrays, canon, cap = self._lower_bag(steps, cursors0)
         cur_canon = {canon[k]: self._up_idx(c)
                      for k, c in cursors0.items()}
         ann = self._to_dev(ann0) if ann0 is not None else None
         (count, overflow, morsels, lcounts, needs, cols, cursors,
-         ann_o) = _bag_program(tuple(arrays), cur_canon, ann, prog=prog_t)
+         ann_o) = _bag_program(tuple(arrays), cur_canon, ann, prog=prog_t,
+                               batch=batch)
         id_of = {v: k for k, v in canon.items()}
         lvars = [s[1] for s in prog_t if s[0] in ("extend", "fold")]
         evars = [s[1] for s in prog_t if s[0] == "extend"]
-        return DeviceFrontier(
+        return dict(
             cap=cap, count=count, overflow=overflow, morsels=morsels,
             cols=dict(cols),
             cursors={id_of[c]: cur for c, cur in cursors.items()},
@@ -386,21 +412,7 @@ class DeviceBackend(ExecBackend):
         cursors, annotation), the per-level counts, the fill-chunk count
         and the overflow flag in one transfer.  Counted as
         ``extend.closing_syncs``."""
-        # pack the payload into three leaves (scalars / int vectors /
-        # annotation) before the transfer; every live vector shares the
-        # final capacity, so one stacked matrix carries them all.
-        scal = torch.stack(
-            [state.count.to(IDX), state.overflow.to(IDX),
-             state.morsels.to(IDX)]
-            + [c.to(IDX) for _v, c in state.level_counts]
-            + [t.to(IDX) for _v, t in state.needed])
-        col_keys = list(state.cols)
-        cur_keys = list(state.cursors)
-        vecs = ([state.cols[k].to(IDX) for k in col_keys]
-                + [state.cursors[k] for k in cur_keys])
-        packed = torch.stack(vecs) if vecs else None
-        scal_h, packed_h, ann = host_get((scal, packed, state.ann))
-        self.stats["extend.closing_syncs"] += 1
+        scal_h, packed_h, ann, col_keys, cur_keys = self._land(state)
         nl = len(state.level_counts)
         count, overflow, morsels = (int(scal_h[0]), bool(scal_h[1]),
                                     int(scal_h[2]))
@@ -413,6 +425,45 @@ class DeviceBackend(ExecBackend):
         cursors = {k: packed_h[len(col_keys) + i]
                    for i, k in enumerate(cur_keys)}
         return (count, overflow, cols, cursors, ann, levels, needed)
+
+    def pipeline_land_batched(self, state: "BatchedFrontier"):
+        """THE closing sync of a batched bag run: every query's compacted
+        frontier, per-level counts and overflow flag in ONE transfer
+        (``extend.closing_syncs`` += 1 for the whole batch).  Returns
+        ``(counts [B], overflows [B], cols, cursors, ann, needed)`` with
+        ``needed`` the worst case over the batch per variable: an
+        overflow retry sizes one buffer shape for every query."""
+        scal_h, packed_h, ann, col_keys, cur_keys = self._land(state)
+        nl = len(state.level_counts)
+        counts = np.asarray(scal_h[0], dtype=np.int64)
+        overflows = np.asarray(scal_h[1]).astype(bool)
+        self.stats["pipeline.morsels"] += int(np.asarray(scal_h[2]).sum())
+        needed = {v: int(np.asarray(t).max(initial=0)) for (v, _), t in
+                  zip(state.needed, scal_h[3 + nl:])}
+        cols = {k: packed_h[i] for i, k in enumerate(col_keys)}
+        cursors = {k: packed_h[len(col_keys) + i]
+                   for i, k in enumerate(cur_keys)}
+        return (counts, overflows, cols, cursors, ann, needed)
+
+    def _land(self, state):
+        """The one transfer of a landing, counted as a closing sync.  The
+        payload is packed into three leaves (scalars, int vectors,
+        annotation) first; every live vector shares the final capacity,
+        so one stacked tensor carries them all ([n, cap], or [n, B, cap]
+        for a batch, as the scalars are [n] or [n, B])."""
+        scal = torch.stack(
+            [state.count.to(IDX), state.overflow.to(IDX),
+             state.morsels.to(IDX)]
+            + [c.to(IDX) for _v, c in state.level_counts]
+            + [t.to(IDX) for _v, t in state.needed])
+        col_keys = list(state.cols)
+        cur_keys = list(state.cursors)
+        vecs = ([state.cols[k].to(IDX) for k in col_keys]
+                + [state.cursors[k] for k in cur_keys])
+        packed = torch.stack(vecs) if vecs else None
+        scal_h, packed_h, ann = host_get((scal, packed, state.ann))
+        self.stats["extend.closing_syncs"] += 1
+        return scal_h, packed_h, ann, col_keys, cur_keys
 
 
 @dataclasses.dataclass
@@ -434,6 +485,16 @@ class DeviceFrontier:
     needed: List                        # [(var, counting-pass total)]
 
 
+@dataclasses.dataclass
+class BatchedFrontier(DeviceFrontier):
+    """``DeviceFrontier`` of B same-shape bag instances run as one
+    batched program: every per-query field gains a leading axis of
+    extent ``batch`` (``count``/``overflow``/``morsels`` ``[B]``, the
+    vectors ``[B, cap]``); ``cap`` stays the shared buffer capacity."""
+
+    batch: int = 1
+
+
 def _bounds(values, offsets, cursor, cap_in, valid):
     """Per-row candidate bounds [cap_in] of one atom, on device: the
     whole level at depth 0 (no cursor), else the cursor's CSR segment.
@@ -441,8 +502,8 @@ def _bounds(values, offsets, cursor, cap_in, valid):
     n = values.shape[0]
     dev = values.device
     if cursor is None:
-        lo = torch.zeros(cap_in, dtype=IDX, device=dev)
-        hi = torch.full((cap_in,), n, dtype=IDX, device=dev)
+        lo = torch.zeros(valid.shape, dtype=IDX, device=dev)
+        hi = torch.full(valid.shape, n, dtype=IDX, device=dev)
     else:
         c = cursor.clamp(0, offsets.shape[0] - 2)
         lo = offsets[c]
@@ -459,10 +520,12 @@ def _envelope(seed, probes, cap_in, count):
     """Counting pass shared by extensions and folds: per-row seed bounds
     and every probe atom's bounds, the liveness mask (a probe with an
     empty segment kills the row) and the sideways min/max envelope of
-    the probe atoms' candidate ranges."""
+    the probe atoms' candidate ranges.  Every per-row tensor here and in
+    the steps below is ``[cap]`` for one query or ``[B, cap]`` for a
+    batch (``count`` ``[]`` or ``[B]``); the steps act on the last axis."""
     seed_values, seed_offsets, seed_cursor = seed
     valid = torch.arange(cap_in, dtype=IDX,
-                         device=seed_values.device) < count
+                         device=seed_values.device) < count.unsqueeze(-1)
     lo0, hi0 = _bounds(seed_values, seed_offsets, seed_cursor, cap_in,
                        valid)
     bounds = []
@@ -494,8 +557,8 @@ def _scan(alive, lo0, hi0):
     offsets and the total, all int32 on the device."""
     cnt = torch.where(alive, (hi0 - lo0).clamp(min=0),
                       torch.zeros((), dtype=IDX, device=lo0.device)).to(IDX)
-    offs = torch.cumsum(cnt, 0, dtype=IDX) - cnt
-    total = offs[-1] + cnt[-1]
+    offs = torch.cumsum(cnt, -1, dtype=IDX) - cnt
+    total = offs[..., -1] + cnt[..., -1]
     return cnt, offs, total
 
 
@@ -506,15 +569,30 @@ def _chunks(total, morsel: int):
 
 def _compact(keep, xs, cap: int):
     """Order-preserving dense prefix of the kept slots of each ``x``
-    (slots past the new count hold zeros), and the new count."""
-    widx = torch.cumsum(keep.to(IDX), 0, dtype=IDX) - 1
-    new_count = widx[-1] + 1
+    (slots past the new count hold zeros), and the new count.  A batch
+    compacts each query's row into its own ``cap + 1`` slots of one flat
+    buffer."""
+    widx = torch.cumsum(keep.to(IDX), -1, dtype=IDX) - 1
+    new_count = widx[..., -1] + 1
     scat = torch.where(keep, widx, cap).to(torch.int64)
+    rows = keep.shape[0] if keep.dim() > 1 else 1
+    if keep.dim() > 1:
+        scat = scat + (cap + 1) * torch.arange(
+            rows, dtype=torch.int64, device=keep.device).unsqueeze(1)
     out = []
     for x in xs:
-        buf = torch.zeros(cap + 1, dtype=x.dtype, device=x.device)
-        out.append(buf.index_copy_(0, scat, x)[:cap])
+        buf = torch.zeros(rows * (cap + 1), dtype=x.dtype, device=x.device)
+        buf.index_copy_(0, scat.reshape(-1), x.reshape(-1))
+        out.append(buf.view(keep.shape[:-1] + (cap + 1,))[..., :cap])
     return new_count, out
+
+
+def _take(x, idx):
+    """``x``'s entries at the per-row positions ``idx`` (each query's own
+    row of ``x`` for a batch)."""
+    if x.dim() == 1:
+        return x[idx]
+    return torch.gather(x, 1, idx.to(torch.int64))
 
 
 def _extend_body(count, overflow, seed, probes, sideways, carry, *,
@@ -585,13 +663,13 @@ def _extend_body(count, overflow, seed, probes, sideways, carry, *,
     total_c = total.clamp(max=cap_out)
     chunks = _chunks(total_c, morsel)
 
-    vals, row, p0, keep, poss = ff_ops.fill(total_c, offs, lo0, seed_values,
-                                            tuple(bounds), 0, cap_out)
+    vals, row, p0, keep, poss = ff_ops.fill(
+        total_c, offs, lo0, seed_values, tuple(bounds), 0, cap_out)
 
     new_count, (vals_c, row_c, p0_c, *pos_c) = _compact(
         keep, (vals, row, p0) + tuple(poss), cap_out)
     rowg = _clip_index(row_c, cap_in)
-    carry_c = tuple(g[rowg] for g in carry)
+    carry_c = tuple(_take(g, rowg) for g in carry)
     # ``total`` is the UNCAPPED counting-pass truth: landed with the
     # closing sync so an overflow retry can size this buffer exactly
     return (new_count, overflow, chunks, total, vals_c, p0_c, tuple(pos_c),
@@ -623,7 +701,7 @@ def _fold_body(count, seed, probes, ann, leaf_anns, carry, *,
         # counting pass IS the fold (e.g. lollipop's pendant edge)
         folded = cnt.to(sr.dtype)
         supp = cnt
-        chunks = torch.zeros((), dtype=IDX, device=dev)
+        chunks = torch.zeros(total.shape, dtype=IDX, device=dev)
     else:
         chunks = _chunks(total, morsel)
         anns = tuple(None if la is None else la.to(sr.dtype).contiguous()
@@ -638,17 +716,24 @@ def _fold_body(count, seed, probes, ann, leaf_anns, carry, *,
     return new_count, chunks, compacted[0], tuple(compacted[1:])
 
 
-def _bag_program(arrays, cursors0, ann, *, prog: Tuple):
+def _bag_program(arrays, cursors0, ann, *, prog: Tuple,
+                 batch: Optional[int] = None):
     """ONE bag's whole extension chain, run eagerly on the device.
 
     ``prog`` is the lowering built by ``run_bag``: per step the
     constraining atoms reference operands by index into the flat
     deduplicated ``arrays`` tuple and cursors by canonical ordinal.
-    Nothing here reads a device value on the host."""
+    With ``batch`` the chain runs B same-shape instances at once (the
+    reference vmaps this program): the cursors are ``[B, 1]``, every
+    frontier tensor gains a leading ``B`` and each fill and fold step is
+    one batched launch.  Nothing here reads a device value on the host."""
     dev = next(iter(arrays)).device if arrays else torch.device("cpu")
-    count = torch.ones((), dtype=IDX, device=dev)
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    morsels = torch.zeros((), dtype=IDX, device=dev)
+    lead = () if batch is None else (batch,)
+    count = torch.ones(lead, dtype=IDX, device=dev)
+    overflow = torch.zeros(lead, dtype=torch.bool, device=dev)
+    morsels = torch.zeros(lead, dtype=IDX, device=dev)
+    if batch is not None and ann is not None:
+        ann = ann.reshape(1, -1).expand(batch, -1).contiguous()
     cap = 1
     cols: Dict[str, torch.Tensor] = {}
     cursors = dict(cursors0)

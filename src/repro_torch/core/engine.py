@@ -50,8 +50,9 @@ from repro_torch.core.backend import ExecBackend, make_backend
 from repro_torch.core.compile import QueryPlan, compile_rule, parameterize
 from repro_torch.core.datalog import (AggRef, Num, Param, Rule, ScalarRef,
                                       Var, eval_expr, parse)
-from repro_torch.core.executor import BagResultCache, Catalog, Executor
-from repro_torch.core.gj import GJResult
+from repro_torch.core.executor import (BagResultCache, Catalog, Executor,
+                                       apply_expr)
+from repro_torch.core.gj import GenericJoin, GJResult, run_batched
 from repro_torch.core.semiring import AGG_TO_SEMIRING, MAX_MIN, MIN_PLUS, SUM_F32
 from repro_torch.core.statistics import StatisticsCatalog
 from repro_torch.core.trie import Trie
@@ -96,11 +97,21 @@ class PreparedQuery:
     binding-independent, every compile-side cache — logical plan, plan
     search decision, physical plan + emitted source — is shared across
     bindings: re-binding performs zero plan searches.
+
+    ``run(*params)`` executes one binding; ``run_batch(bindings)``
+    executes many, as ONE batched device launch per
+    ``statistics.max_batch`` chunk where the plan shape allows, falling
+    back to the sequential per-binding loop (the exact-parity oracle)
+    otherwise.  Neither materializes the head relation.
     """
 
     engine: "Engine"
     rule: Rule
     defaults: Tuple[object, ...]
+
+    @property
+    def n_params(self) -> int:
+        return len(self.defaults)
 
     def _binding(self, params: Tuple) -> Tuple:
         if not params:
@@ -118,6 +129,16 @@ class PreparedQuery:
                                       encode=enc)
 
     __call__ = run
+
+    def run_batch(self, bindings) -> List[QueryResult]:
+        """Execute many bindings; results in submission order.  Each
+        entry is a parameter tuple (a bare scalar binds a 1-slot rule)."""
+        norm = [self._binding(tuple(b) if isinstance(b, (tuple, list))
+                              else (b,)) for b in bindings]
+        out = self.engine._execute_batch(self.rule, norm)
+        if out is None:
+            out = [self.run(*b) for b in norm]
+        return out
 
 
 class Engine:
@@ -386,6 +407,54 @@ class Engine:
         md["est_error"] = _est_error(md["bags"])
         self._program_metadata.append(md)
         return res
+
+    def _execute_batch(self, rule: Rule,
+                       bindings: List[Tuple]) -> Optional[List[QueryResult]]:
+        """Batched lowering of a prepared rule: one GenericJoin per
+        binding over the SAME physical plan, handed to ``gj.run_batched``
+        for batched device execution.  Returns None when the shape is
+        outside the batchable envelope — multi-bag plans, top-down joins,
+        count-distinct rewrites, host backends — and the caller falls
+        back to the sequential per-binding loop, the exact-parity oracle.
+
+        The engine-lifetime bag cache and the dispatch sanitizer are
+        bypassed on purpose: per-binding probe results are cheaper to
+        recompute than to cache, and the sanitizer's per-rule dispatch
+        model does not describe a batched launch.
+        """
+        agg = rule.agg
+        if agg is not None and agg.op == "count" and agg.arg != "*":
+            return None
+        plan = self._compile(rule)
+        pplan, _fn, _src, _md = self._physical(plan)
+        if len(pplan.bag_ops) != 1 or pplan.final is not None:
+            return None
+        bops = pplan.bag_ops[0]
+        if bops.scan.child_inputs:
+            return None
+        lplan = pplan.logical
+        joins: List[GenericJoin] = []
+        for binding in bindings:
+            enc = self._binding_encode(binding)
+            gj_atoms = []
+            selections: Dict[int, Dict[int, int]] = {}
+            for acc in bops.scan.accesses:
+                sel = acc.selection_map(enc)
+                if sel:
+                    selections[len(gj_atoms)] = sel
+                gj_atoms.append((self.catalog.reordered(acc.rel, acc.perm),
+                                 acc.vars))
+            joins.append(GenericJoin(
+                gj_atoms, bops.scan.var_order,
+                bops.materialize.output_vars, semiring=lplan.semiring,
+                selections=selections, backend=self.backend,
+                hints=bops.hints()))
+        results = run_batched(joins)
+        if results is None:
+            return None
+        return [QueryResult.from_gj(
+            apply_expr(lplan, res, self.catalog.scalars))
+            for res in results]
 
     def _eval_rule(self, rule: Rule, materialize: bool,
                    encode=None) -> QueryResult:

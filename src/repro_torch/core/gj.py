@@ -704,3 +704,126 @@ class GenericJoin:
         folded = np.asarray(sr.segment_reduce(np.asarray(ann),
                                               inv.astype(np.int32), len(uniq)))
         return GJResult(self.output_vars, out_cols, folded)
+
+
+# ------------------------------------------------------------- batched entry
+def batch_signature(j: GenericJoin) -> Tuple:
+    """Shape key deciding which GenericJoin instances may share one
+    batched launch: same tries (by identity), same variable layout, same
+    descent depths and cursor presence per atom.  Joins built from one
+    prepared plan over one catalog differ only in their pre-bound cursor
+    VALUES — except degenerate bindings (constant absent from the
+    relation), whose ``_prebind`` substituted a fresh empty trie
+    (distinct id) and which therefore fall out of the modal group."""
+    return tuple((id(a.trie), a.vars, a.depth, a.cursor is not None)
+                 for a in j.atoms)
+
+
+def run_batched(joins: Sequence[GenericJoin]) -> Optional[List[GJResult]]:
+    """Execute B same-shape GenericJoin instances as batched device
+    launches — one ``run_bag_batched`` per ``statistics.max_batch``
+    chunk, i.e. ONE launch for any batch whose buffers fit the device
+    budget — returning results in submission order.
+
+    Returns None when batching is ineligible (a backend without the
+    pipeline, a step that must land on the host, or no bound cursor to
+    carry the batch axis); the caller falls back to the sequential
+    per-query loop.  Safe to fall back at any point: no atom state is
+    mutated before the closing sync, and ``_finalize`` touches none
+    after it.
+
+    Joins outside the modal shape group (degenerate bindings) run
+    through their own sequential ``run()`` — they are the rare case and
+    already produce the canonical empty result.
+    """
+    joins = list(joins)
+    if not joins:
+        return []
+    be = joins[0].backend
+    if not (be.pipelined and hasattr(be, "run_bag_batched")):
+        return None
+    if any(j.backend is not be for j in joins[1:]):
+        return None
+    sigs = [batch_signature(j) for j in joins]
+    tally: Dict[Tuple, int] = {}
+    for s in sigs:
+        tally[s] = tally.get(s, 0) + 1
+    modal = max(tally, key=tally.get)
+    group = [i for i, s in enumerate(sigs) if s == modal]
+    rest = [i for i, s in enumerate(sigs) if s != modal]
+    template = joins[group[0]]
+    sr = template.semiring
+    out_set = set(template.output_vars)
+    cursor_atoms = [j for j, a in enumerate(template.atoms)
+                    if a.cursor is not None]
+    if not cursor_atoms:
+        # nothing binds a batch axis: B identical unparameterized queries
+        # are better served by the bag cache than by a batched launch
+        return None
+
+    def record(exact_caps: bool, needed: Dict[str, int]):
+        """Re-run the driver's recording pass (binding-independent: caps
+        come from trie statistics and plan hints, never cursor values) to
+        produce the step chain at the given capacities."""
+        pipe = _PipelineDriver(template, exact_caps=exact_caps,
+                               needed=needed or None)
+        for vi, v in enumerate(template.var_order):
+            remaining = template.var_order[vi + 1:]
+            terminal = (sr is not None and v not in out_set
+                        and not remaining)
+            if not pipe.try_step(v, terminal):
+                return None
+        return pipe
+
+    fb_key = (template.var_order,
+              tuple((a.trie.name, tuple(a.vars)) for a in template.atoms))
+    feedback = getattr(be, "cap_feedback", None)
+    needed: Dict[str, int] = {}
+    if feedback is not None:
+        needed.update(feedback.get(fb_key, {}))
+    pipe = record(False, needed)
+    if pipe is None or not pipe.plans:
+        return None
+    results: List[Optional[GJResult]] = [None] * len(joins)
+    measured = False
+    peak_cap = max((op[3] for op in pipe.plans if op[0] == "extend"),
+                   default=1)
+    chunk = stats_mod.max_batch(peak_cap)
+    for start in range(0, len(group), chunk):
+        idxs = group[start:start + chunk]
+        counts = cols = ann_b = None
+        for _attempt in range(len(template.var_order) + 1):
+            cursors0 = {
+                id(template.atoms[j]): np.stack(
+                    [joins[i].atoms[j].cursor for i in idxs])
+                for j in cursor_atoms}
+            ann0 = np.asarray(sr.lift(1)) if sr is not None else None
+            state = be.run_bag_batched(cursors0, ann0, list(pipe.plans))
+            (counts, overflows, cols, _cursors, ann_b,
+             step_needed) = be.pipeline_land_batched(state)
+            if not overflows.any():
+                break
+            be.stats["pipeline.retries"] += 1
+            grew = False
+            for v, t in step_needed.items():
+                if t > needed.get(v, 0):
+                    needed[v] = t
+                    grew = True
+                    measured = True
+            if not grew:  # pragma: no cover — measurement stuck
+                return None
+            pipe = record(True, needed)
+            if pipe is None:
+                return None
+        else:  # pragma: no cover — retries exhausted
+            return None
+        for bi, i in enumerate(idxs):
+            f = int(counts[bi])
+            frontier = {k: np.asarray(c[bi])[:f] for k, c in cols.items()}
+            ann_i = np.asarray(ann_b[bi])[:f] if ann_b is not None else None
+            results[i] = template._finalize(frontier, ann_i, f)
+    if measured and feedback is not None:
+        feedback[fb_key] = dict(needed)
+    for i in rest:
+        results[i] = joins[i].run()
+    return results

@@ -187,16 +187,21 @@ class HybridSetStore:
         the bitset."""
         t = self._dev.get(name)
         if t is None:
-            src = {"neighbors": lambda: self.csr.neighbors,
-                   "offsets": lambda: self.csr.offsets,
-                   "block_offsets": lambda: self.bitset.offsets,
-                   "block_ids": lambda: self.bitset.block_ids,
-                   "words": lambda: self.bitset.words.view(np.int32),
-                   "index": lambda: self.bitset.index}[name]()
-            t = torch.as_tensor(np.ascontiguousarray(src, dtype=np.int32),
-                                device=self.device)
+            t = torch.as_tensor(
+                np.ascontiguousarray(self.host_array(name), dtype=np.int32),
+                device=self.device)
             self._dev[name] = t
         return t
+
+    def host_array(self, name: str) -> np.ndarray:
+        """The host array behind :meth:`dev`'s ``name`` (its device copy
+        holds one int32 per element)."""
+        return {"neighbors": lambda: self.csr.neighbors,
+                "offsets": lambda: self.csr.offsets,
+                "block_offsets": lambda: self.bitset.offsets,
+                "block_ids": lambda: self.bitset.block_ids,
+                "words": lambda: self.bitset.words.view(np.int32),
+                "index": lambda: self.bitset.index}[name]()
 
     # ------------------------------------------------------------- dispatch
     def intersect_count(self, u: np.ndarray, v: np.ndarray) -> np.ndarray:

@@ -266,14 +266,24 @@ class Trie:
     # ------------------------------------------------------- device residency
     @property
     def device_resident(self) -> bool:
-        """True if ANY level array (or the annotation) currently holds a
-        device-resident cached copy — the multi-tenant graph store's
-        eviction accounting reads this."""
+        """True if ANY level array (or the annotation, or a device layout
+        store of this trie) currently holds a device-resident cached copy
+        — the multi-tenant graph store's eviction accounting reads this."""
         if self.__dict__.get("_dev_annotation") is not None:
+            return True
+        if any(store._dev for _k, store in self.device_stores()):
             return True
         return any(lv.__dict__.get("_dev_values") is not None
                    or lv.__dict__.get("_dev_offsets") is not None
                    for lv in self.levels)
+
+    def device_stores(self):
+        """``(key, store)`` of the layout stores this trie caches for a
+        device backend (every cache tag but the host oracle's ``host``),
+        in key order."""
+        stores = self.__dict__.get("_hybrid_stores") or {}
+        return sorted(((k, s) for k, s in stores.items() if k[0] != "host"),
+                      key=lambda ks: repr(ks[0]))
 
     def evict_device(self) -> int:
         """Drop every device-resident cached copy this trie holds.
@@ -300,6 +310,13 @@ class Trie:
             bs = getattr(store, "bitset", None)
             if bs is not None and bs.__dict__.pop(
                     "_dev_sideways_cache", None) is not None:
+                dropped += 1
+        # the device layout stores' own copies (CSR, bitset words,
+        # directory, index: ``HybridSetStore.dev``), one entry a store —
+        # the largest arrays a tenant holds on the card
+        for _k, store in self.device_stores():
+            if store._dev:
+                store._dev.clear()
                 dropped += 1
         return dropped
 

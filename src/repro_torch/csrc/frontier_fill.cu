@@ -42,8 +42,15 @@
 // lost its call on the H100; a slot a thread keeps 64 warps an SM in
 // flight on 32 registers.
 //
+// The batched bag program (prepared queries re-bound B times, the serving
+// path) launches frontier_fill_batched_kernel: B queries over the same
+// levels, each with its own per-row arrays and total, once a step.  The
+// reference vmaps the fill's plain version (src/repro/core/backend.py:827);
+// here each query takes whole warps of a one-dimensional grid and runs this
+// code as it is (a batch may hold more queries than gridDim.y's 65,535).
+//
 // The same source holds frontier_fold, the device terminal fold (its own
-// header below).
+// header below), which folds a batch as one merge path over all its rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,15 +97,18 @@ __device__ __forceinline__ int32_t warp_upper_bound(
   return lo;
 }
 
-__global__ void __launch_bounds__(256) frontier_fill_kernel(
+// Output slot start + i of one query.  Its per-row arrays (offs, lo0 and
+// the probes' lo and hi) start q_row rows in; probe k's position goes to
+// pos_o[k * pos_stride + i].  The whole warp comes here for one query.
+__device__ __forceinline__ void fill_slot(
     const int32_t* __restrict__ total_c, const int32_t* __restrict__ offs,
     const int32_t* __restrict__ lo0, int32_t cap_in,
-    const int32_t* __restrict__ seed, int32_t n0, FillProbes probes,
-    int64_t start, int64_t n, int32_t* __restrict__ vals_o,
-    int32_t* __restrict__ row_o, int32_t* __restrict__ p0_o,
-    bool* __restrict__ keep_o, int32_t* __restrict__ pos_o) {
+    const int32_t* __restrict__ seed, int32_t n0, const FillProbes& probes,
+    int64_t q_row, int64_t start, int64_t n, int64_t i, int64_t pos_stride,
+    int32_t* __restrict__ vals_o, int32_t* __restrict__ row_o,
+    int32_t* __restrict__ p0_o, bool* __restrict__ keep_o,
+    int32_t* __restrict__ pos_o) {
   const int lane = threadIdx.x & 31;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   // the live slots end at the total or the window's end
   const int64_t live_end = min((int64_t)__ldg(total_c), start + n);
   const int64_t jj = start + i;
@@ -108,7 +118,7 @@ __global__ void __launch_bounds__(256) frontier_fill_kernel(
     row_o[i] = 0;
     p0_o[i] = 0;
     keep_o[i] = false;
-    for (int k = 0; k < probes.count; ++k) pos_o[(int64_t)k * n + i] = 0;
+    for (int k = 0; k < probes.count; ++k) pos_o[k * pos_stride + i] = 0;
     return;
   }
   // Every lane of the warp runs on to its end (the grid rounds n up to
@@ -151,8 +161,8 @@ __global__ void __launch_bounds__(256) frontier_fill_kernel(
 
   for (int k = 0; k < probes.count; ++k) {
     const FillProbe pr = probes.p[k];
-    int32_t plo = __ldg(pr.lo + row);
-    int32_t phi = __ldg(pr.hi + row);
+    int32_t plo = __ldg(pr.lo + q_row + row);
+    int32_t phi = __ldg(pr.hi + q_row + row);
     const int32_t end = phi;
     // While the whole warp searches one long segment inside the level, it
     // narrows it together: 32 probes a step, each lane keeping the part
@@ -185,7 +195,7 @@ __global__ void __launch_bounds__(256) frontier_fill_kernel(
     }
     bool found = pr.n > 0 && plo < end &&
                  __ldg(pr.vals + clamp_i32(plo, 0, pr.n - 1)) == v;
-    if (i < n) pos_o[(int64_t)k * n + i] = live ? plo : 0;
+    if (i < n) pos_o[k * pos_stride + i] = live ? plo : 0;
     keep = keep && found;
   }
   if (i < n) {
@@ -194,6 +204,42 @@ __global__ void __launch_bounds__(256) frontier_fill_kernel(
     p0_o[i] = live ? p0 : 0;
     keep_o[i] = keep;
   }
+}
+
+__global__ void __launch_bounds__(256) frontier_fill_kernel(
+    const int32_t* __restrict__ total_c, const int32_t* __restrict__ offs,
+    const int32_t* __restrict__ lo0, int32_t cap_in,
+    const int32_t* __restrict__ seed, int32_t n0, FillProbes probes,
+    int64_t start, int64_t n, int32_t* __restrict__ vals_o,
+    int32_t* __restrict__ row_o, int32_t* __restrict__ p0_o,
+    bool* __restrict__ keep_o, int32_t* __restrict__ pos_o) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  fill_slot(total_c, offs, lo0, cap_in, seed, n0, probes, 0, start, n, i, n,
+            vals_o, row_o, p0_o, keep_o, pos_o);
+}
+
+// The batched fill: `batch` queries over shared levels, each with its own
+// total, offsets, seed starts and probe bounds ([batch, cap_in]) and its own
+// n output slots ([batch, n]; the positions [n_probes, batch, n]).  Query b
+// takes `per_query` threads (n rounded up to whole warps), so each warp
+// serves one query and runs the single fill's code as it is; the grid is
+// one-dimensional, since a batch may hold more queries than gridDim.y.
+__global__ void __launch_bounds__(256) frontier_fill_batched_kernel(
+    const int32_t* __restrict__ total_c, const int32_t* __restrict__ offs,
+    const int32_t* __restrict__ lo0, int32_t cap_in,
+    const int32_t* __restrict__ seed, int32_t n0, FillProbes probes,
+    int64_t batch, int64_t n, int64_t per_query,
+    int32_t* __restrict__ vals_o, int32_t* __restrict__ row_o,
+    int32_t* __restrict__ p0_o, bool* __restrict__ keep_o,
+    int32_t* __restrict__ pos_o) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t b = t / per_query;
+  if (b >= batch) return;  // whole warps: per_query is a multiple of 32
+  const int64_t i = t - b * per_query;
+  const int64_t q_row = b * cap_in, q_out = b * n;
+  fill_slot(total_c + b, offs + q_row, lo0 + q_row, cap_in, seed, n0, probes,
+            q_row, 0, n, i, batch * n, vals_o + q_out, row_o + q_out,
+            p0_o + q_out, keep_o + q_out, pos_o + q_out);
 }
 
 // ------------------------------------------------------------- the fold
@@ -325,23 +371,71 @@ __device__ __forceinline__ uint8_t shfl_xor<uint8_t>(uint8_t v, int o) {
   return (uint8_t)__shfl_xor_sync(kFull, (int)v, o);
 }
 
-// The end of row x on the candidate axis (its inclusive scan).
-__device__ __forceinline__ int32_t row_end(const int32_t* __restrict__ offs,
-                                           int32_t total, int32_t cap_in,
-                                           int64_t x) {
-  return x + 1 < cap_in ? __ldg(offs + x + 1) : total;
-}
+// Where the rows' candidates lie on the candidate axis.  One query: row x
+// starts at offs[x] and ends at offs[x + 1] (the last at the total), in
+// int32.  A batch (the batched fold): query b's cap_in rows are rows
+// b * cap_in .. of the launch, each query's axis follows the queries'
+// before it (base[b], the exclusive scan of the totals, in int64 since the
+// sum of a batch's totals may pass 2^31), and base[batch] is the total.
+// So a batch folds as one merge path over all its rows, and no carry
+// crosses a query: rows of two queries are two rows.
+// Each is built inside the kernel from its (restrict) parameters.
+struct OneQuery {
+  using Coord = int32_t;
+  const int32_t* offs;
+  const int32_t* total_c;
+  int32_t cap_in;
+  __device__ __forceinline__ OneQuery(const int32_t* o, const int32_t* t,
+                                      int32_t c, const int64_t*, int64_t)
+      : offs(o), total_c(t), cap_in(c) {}
+  __device__ __forceinline__ int32_t rows() const { return cap_in; }
+  __device__ __forceinline__ int32_t total() const { return __ldg(total_c); }
+  __device__ __forceinline__ int32_t start(int64_t x) const {
+    return __ldg(offs + x);
+  }
+  __device__ __forceinline__ int32_t end(int32_t total, int64_t x) const {
+    return x + 1 < cap_in ? __ldg(offs + x + 1) : total;
+  }
+};
+
+struct Batch {
+  using Coord = int64_t;
+  const int32_t* offs;    // [batch, cap_in]: each query's exclusive scan
+  const int32_t* totals;  // [batch]
+  int32_t cap_in;
+  const int64_t* base;    // [batch + 1]
+  int64_t batch;
+  __device__ __forceinline__ Batch(const int32_t* o, const int32_t* t,
+                                   int32_t c, const int64_t* b, int64_t n)
+      : offs(o), totals(t), cap_in(c), base(b), batch(n) {}
+  __device__ __forceinline__ int32_t rows() const {
+    return (int32_t)(batch * cap_in);
+  }
+  __device__ __forceinline__ int64_t total() const {
+    return __ldg(base + batch);
+  }
+  __device__ __forceinline__ int64_t start(int64_t x) const {
+    return __ldg(base + x / cap_in) + __ldg(offs + x);
+  }
+  __device__ __forceinline__ int64_t end(int64_t, int64_t x) const {
+    const int64_t b = x / cap_in;
+    return __ldg(base + b) + (x + 1 - b * cap_in < cap_in
+                                  ? __ldg(offs + x + 1)
+                                  : __ldg(totals + b));
+  }
+};
 
 // The merge-path coordinate on diagonal d: the least x in [lo, hi] with
-// row_end(x) + x >= d (the row ends consumed; d - x candidates).  The
-// whole warp searches, 32 probes a step.
+// end(x) + x >= d (the row ends consumed; d - x candidates).  The whole
+// warp searches, 32 probes a step.
+template <typename Rows>
 __device__ __forceinline__ int64_t warp_path_search(
-    const int32_t* __restrict__ offs, int32_t total, int32_t cap_in,
-    int64_t d, int64_t lo, int64_t hi) {
+    const Rows& rows, typename Rows::Coord total, int64_t d, int64_t lo,
+    int64_t hi) {
   const int lane = threadIdx.x & 31;
   while (lo < hi) {  // lo and hi are the same in every lane
     const int64_t p = lo + (hi - lo) * (lane + 1) / 33;  // in [lo, hi)
-    const bool right = (int64_t)row_end(offs, total, cap_in, p) + p >= d;
+    const bool right = (int64_t)rows.end(total, p) + p >= d;
     const unsigned m = __ballot_sync(kFull, right);
     const int k = m ? __ffs(m) - 1 : 32;  // first probe on the right
     const int64_t at = __shfl_sync(kFull, p, k & 31);
@@ -353,12 +447,14 @@ __device__ __forceinline__ int64_t warp_path_search(
 }
 
 // The same coordinate by one thread's binary search.
-__device__ __forceinline__ int64_t path_search(
-    const int32_t* __restrict__ offs, int32_t total, int32_t cap_in,
-    int64_t d, int64_t lo, int64_t hi) {
+template <typename Rows>
+__device__ __forceinline__ int64_t path_search(const Rows& rows,
+                                               typename Rows::Coord total,
+                                               int64_t d, int64_t lo,
+                                               int64_t hi) {
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
-    if ((int64_t)row_end(offs, total, cap_in, mid) + mid >= d) hi = mid;
+    if ((int64_t)rows.end(total, mid) + mid >= d) hi = mid;
     else lo = mid + 1;
   }
   return lo;
@@ -379,16 +475,19 @@ __device__ __forceinline__ int32_t level_at(const int32_t* __restrict__ vals,
   return __ldg(vals + clamp_i32(p, 0, n - 1));
 }
 
-template <typename T, int NP>
+// A batch (Rows = Batch) passes batch_base and batch, and its queries'
+// cap_in: the launch folds batch * cap_in rows.
+template <typename T, int NP, typename Rows>
 __global__ void __launch_bounds__(kThreads) fold_kernel(
     const int32_t* __restrict__ lo0, const int32_t* __restrict__ offs,
-    const int32_t* __restrict__ total_c, int32_t cap_in,
+    const int32_t* __restrict__ total_c, int32_t q_cap_in,
     const int32_t* __restrict__ seed, int32_t n0,
     const __grid_constant__ FillProbes probes,
     const __grid_constant__ FoldAnns anns, int op, T zero, T one,
     T* __restrict__ folded, int32_t* __restrict__ supp,
     int32_t* __restrict__ carry_row, T* __restrict__ carry_val,
-    int32_t* __restrict__ carry_hits) {
+    int32_t* __restrict__ carry_hits,
+    const int64_t* __restrict__ batch_base, int64_t batch) {
   __shared__ int32_t s_end[kTile];   // the tile's row ends, less its ys
   __shared__ T s_contrib[kTile];     // per candidate: its contribution
   __shared__ uint8_t s_keep[kTile];  // and whether every probe holds it
@@ -403,7 +502,10 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int np = NP < FF_MAX_PROBES ? NP : probes.count;
-  const int32_t total = __ldg(total_c);
+  using C = typename Rows::Coord;
+  const Rows rows_at(offs, total_c, q_cap_in, batch_base, batch);
+  const int32_t cap_in = rows_at.rows();
+  const C total = rows_at.total();
   const int64_t items = (int64_t)cap_in + total;
   int64_t share = (items + gridDim.x - 1) / gridDim.x;
   share = (share + kTile - 1) / kTile * kTile;
@@ -413,7 +515,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
   // 1. the share's start x0 and end x1 on the merge path
   if (warp < 2) {
     const int64_t d = warp == 0 ? d0 : d1;
-    const int64_t p = warp_path_search(offs, total, cap_in, d,
+    const int64_t p = warp_path_search(rows_at, total, d,
                                        imax(d - total, (int64_t)0),
                                        imin(d, (int64_t)cap_in));
     if (lane == 0) s_path[warp] = p;
@@ -432,7 +534,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
     const int nb = (int)imin((int64_t)kThreads, tiles - t0);
     for (int i = tid; i <= nb; i += kThreads) {
       const int64_t d = imin(d0 + (t0 + i) * kTile, d1);
-      s_tx[i] = (int32_t)path_search(offs, total, cap_in, d,
+      s_tx[i] = (int32_t)path_search(rows_at, total, d,
                                      imax(x0, d - total), imin(x1, d));
     }
     __syncthreads();
@@ -440,10 +542,11 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
       const int64_t ds = d0 + (t0 + t) * kTile;
       const int64_t de = imin(ds + kTile, d1);
       const int32_t xs = s_tx[t], xe = s_tx[t + 1];
-      const int32_t ys = (int32_t)(ds - xs), ye = (int32_t)(de - xe);
-      const int rows = xe - xs, ncand = ye - ys, tile_items = rows + ncand;
+      const C ys = (C)(ds - xs), ye = (C)(de - xe);
+      const int rows = xe - xs, ncand = (int)(ye - ys);
+      const int tile_items = rows + ncand;
       for (int r = tid; r < rows; r += kThreads)
-        s_end[r] = row_end(offs, total, cap_in, xs + r) - ys;
+        s_end[r] = (int32_t)(rows_at.end(total, xs + r) - ys);
       __syncthreads();
 
       // this thread's items [dt, dt_end) start at (xr0, yc0) in the tile
@@ -470,7 +573,8 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
         int32_t prev_v = 0, prev_pos[NPA] = {};
         // this lane's last row and that row's data, kept across rounds
         int my_row = -1;
-        int32_t my_base = 0, plo[NPA] = {}, phi[NPA] = {};
+        C my_base = 0;
+        int32_t plo[NPA] = {}, phi[NPA] = {};
         for (int cb = c_begin; cb < c_end; cb += 32) {
           const int c = cb + lane;
           const bool act = c < c_end;
@@ -487,7 +591,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
           }
           if (act && r != my_row) {
             my_row = r;
-            my_base = __ldg(lo0 + xs + r) - __ldg(offs + xs + r);
+            my_base = __ldg(lo0 + xs + r) - rows_at.start(xs + r);
 #pragma unroll
             for (int q = 0; q < NP; ++q) {
               if (q < np) {
@@ -496,7 +600,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
               }
             }
           }
-          const int32_t p0 = my_base + ys + c;
+          const int32_t p0 = (int32_t)(my_base + ys + c);
           const int32_t v =
               act ? __ldg(seed + clamp_i32(p0, 0, n0 > 0 ? n0 - 1 : 0))
                   : INT32_MAX;
@@ -692,54 +796,69 @@ __global__ void fold_carry_kernel(const int32_t* __restrict__ carry_row,
   }
 }
 
+// batch_base null: one query of cap_in rows; else a batch of `batch`.
 template <typename T, int NP>
 static int launch(const int32_t* lo0, const int32_t* offs,
-                  const int32_t* total_c, int32_t cap_in,
-                  const int32_t* seed, int32_t n0, const FillProbes* probes,
-                  const FoldAnns* anns, int op, T zero, T one, T* folded,
-                  int32_t* supp, void* scratch, cudaStream_t stream) {
+                  const int32_t* total_c, const int64_t* batch_base,
+                  int64_t batch, int32_t cap_in, const int32_t* seed,
+                  int32_t n0, const FillProbes* probes, const FoldAnns* anns,
+                  int op, T zero, T one, T* folded, int32_t* supp,
+                  void* scratch, cudaStream_t stream) {
   int32_t* carry_row = static_cast<int32_t*>(scratch);
   T* carry_val = reinterpret_cast<T*>(carry_row + kBlocks);
   int32_t* carry_hits = carry_row + 2 * kBlocks;
-  fold_kernel<T, NP><<<kBlocks, kThreads, 0, stream>>>(
-      lo0, offs, total_c, cap_in, seed, n0, *probes, *anns, op, zero, one,
-      folded, supp, carry_row, carry_val, carry_hits);
+  if (batch_base == nullptr)
+    fold_kernel<T, NP, OneQuery><<<kBlocks, kThreads, 0, stream>>>(
+        lo0, offs, total_c, cap_in, seed, n0, *probes, *anns, op, zero, one,
+        folded, supp, carry_row, carry_val, carry_hits, nullptr, 1);
+  else
+    fold_kernel<T, NP, Batch><<<kBlocks, kThreads, 0, stream>>>(
+        lo0, offs, total_c, cap_in, seed, n0, *probes, *anns, op, zero, one,
+        folded, supp, carry_row, carry_val, carry_hits, batch_base, batch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;  // 8 warps, one for each block b >= 1
   fold_carry_kernel<T><<<(kBlocks - 1 + 7) / 8, threads, 0, stream>>>(
-      carry_row, carry_val, carry_hits, kBlocks, cap_in, op, zero, folded,
-      supp);
+      carry_row, carry_val, carry_hits, kBlocks,
+      batch_base == nullptr ? cap_in : (int32_t)(batch * cap_in), op, zero,
+      folded, supp);
   return (int)cudaGetLastError();
 }
 
 // The probe count picks the instance: each of 0, 1 and 2 probes has its
 // own (on the H100 the generic one took 2.6 times as long on the main
 // path's call, for its registers).
+// One entry per semiring type: a single query's fold (batch_base null) or
+// a batch's (its base, [batch + 1]; lo0, offs, the probes' bounds, folded
+// and supp [batch, cap_in]; total_c [batch]).
 template <typename T>
-static int launch_op(const int32_t* lo0, const int32_t* offs,
-                     const int32_t* total_c, int32_t cap_in,
-                     const int32_t* seed, int32_t n0,
-                     const FillProbes* probes, const FoldAnns* anns, int op,
-                     T zero, T one, T* folded, int32_t* supp, void* scratch,
-                     cudaStream_t stream) {
+static int fold_entry(const int32_t* lo0, const int32_t* offs,
+                      const int32_t* total_c, const int64_t* batch_base,
+                      int64_t batch, int32_t cap_in, const int32_t* seed,
+                      int32_t n0, const FillProbes* probes,
+                      const FoldAnns* anns, int op, T zero, T one,
+                      T* folded, int32_t* supp, void* scratch,
+                      cudaStream_t stream) {
+  if (batch_base != nullptr && (batch < 1 || batch * cap_in > INT32_MAX))
+    return (int)cudaErrorInvalidValue;
   switch (probes->count) {
     case 0:
-      return launch<T, 0>(lo0, offs, total_c, cap_in, seed, n0, probes,
-                          anns, op, zero, one, folded, supp, scratch,
-                          stream);
+      return launch<T, 0>(lo0, offs, total_c, batch_base, batch, cap_in,
+                          seed, n0, probes, anns, op, zero, one, folded, supp,
+                          scratch, stream);
     case 1:
-      return launch<T, 1>(lo0, offs, total_c, cap_in, seed, n0, probes,
-                          anns, op, zero, one, folded, supp, scratch,
-                          stream);
+      return launch<T, 1>(lo0, offs, total_c, batch_base, batch, cap_in,
+                          seed, n0, probes, anns, op, zero, one, folded, supp,
+                          scratch, stream);
     case 2:
-      return launch<T, 2>(lo0, offs, total_c, cap_in, seed, n0, probes,
-                          anns, op, zero, one, folded, supp, scratch,
-                          stream);
+      return launch<T, 2>(lo0, offs, total_c, batch_base, batch, cap_in,
+                          seed, n0, probes, anns, op, zero, one, folded, supp,
+                          scratch, stream);
     default:
-      return launch<T, FF_MAX_PROBES>(lo0, offs, total_c, cap_in, seed, n0,
-                                      probes, anns, op, zero, one, folded,
-                                      supp, scratch, stream);
+      return launch<T, FF_MAX_PROBES>(lo0, offs, total_c, batch_base, batch,
+                                      cap_in, seed, n0, probes, anns, op,
+                                      zero, one, folded, supp, scratch,
+                                      stream);
   }
 }
 
@@ -758,50 +877,56 @@ extern "C" int64_t frontier_fold_scratch_bytes() {
 // lo0, offs: [cap_in] (each row's seed segment start and exclusive-scan
 // candidate offset); total_c: the candidate total, on the device; seed:
 // [n0]; scratch: frontier_fold_scratch_bytes(); folded, supp: [cap_in],
-// every row written.  op selects the float semiring (0 sum, 1 min_plus,
-// 2 max_min).  Returns the first launch error, or 0.
+// every row written.  A batch of `batch` queries passes batch_base (its
+// [batch + 1] int64 scan of the totals, see fold::Batch) and every per-row
+// array as [batch, cap_in], total_c as [batch]; one query passes null.  op
+// selects the float semiring (0 sum, 1 min_plus, 2 max_min).  Returns the
+// first launch error, or 0.
 extern "C" int frontier_fold_i32(const int32_t* lo0, const int32_t* offs,
-                                 const int32_t* total_c, int32_t cap_in,
-                                 const int32_t* seed, int32_t n0,
-                                 const FillProbes* probes,
+                                 const int32_t* total_c,
+                                 const int64_t* batch_base, int64_t batch,
+                                 int32_t cap_in, const int32_t* seed,
+                                 int32_t n0, const FillProbes* probes,
                                  const FoldAnns* anns, int32_t op,
                                  int32_t zero, int32_t one, int32_t* folded,
                                  int32_t* supp, void* scratch,
                                  cudaStream_t stream) {
   if (fold::bad_args(cap_in, probes) || op != 0)
     return (int)cudaErrorInvalidValue;
-  return fold::launch_op<int32_t>(lo0, offs, total_c, cap_in, seed, n0,
-                                  probes, anns, op, zero, one, folded, supp,
-                                  scratch, stream);
+  return fold::fold_entry<int32_t>(lo0, offs, total_c, batch_base, batch,
+                                   cap_in, seed, n0, probes, anns, op, zero,
+                                   one, folded, supp, scratch, stream);
 }
 
 extern "C" int frontier_fold_f32(const int32_t* lo0, const int32_t* offs,
-                                 const int32_t* total_c, int32_t cap_in,
-                                 const int32_t* seed, int32_t n0,
-                                 const FillProbes* probes,
+                                 const int32_t* total_c,
+                                 const int64_t* batch_base, int64_t batch,
+                                 int32_t cap_in, const int32_t* seed,
+                                 int32_t n0, const FillProbes* probes,
                                  const FoldAnns* anns, int32_t op, float zero,
                                  float one, float* folded, int32_t* supp,
                                  void* scratch, cudaStream_t stream) {
   if (fold::bad_args(cap_in, probes) || op < 0 || op > 2)
     return (int)cudaErrorInvalidValue;
-  return fold::launch_op<float>(lo0, offs, total_c, cap_in, seed, n0, probes,
-                                anns, op, zero, one, folded, supp, scratch,
-                                stream);
+  return fold::fold_entry<float>(lo0, offs, total_c, batch_base, batch,
+                                 cap_in, seed, n0, probes, anns, op, zero,
+                                 one, folded, supp, scratch, stream);
 }
 
 extern "C" int frontier_fold_u8(const int32_t* lo0, const int32_t* offs,
-                                const int32_t* total_c, int32_t cap_in,
-                                const int32_t* seed, int32_t n0,
-                                const FillProbes* probes,
+                                const int32_t* total_c,
+                                const int64_t* batch_base, int64_t batch,
+                                int32_t cap_in, const int32_t* seed,
+                                int32_t n0, const FillProbes* probes,
                                 const FoldAnns* anns, int32_t op,
                                 uint8_t zero, uint8_t one, uint8_t* folded,
                                 int32_t* supp, void* scratch,
                                 cudaStream_t stream) {
   if (fold::bad_args(cap_in, probes) || op != 3)
     return (int)cudaErrorInvalidValue;
-  return fold::launch_op<uint8_t>(lo0, offs, total_c, cap_in, seed, n0,
-                                  probes, anns, op, zero, one, folded, supp,
-                                  scratch, stream);
+  return fold::fold_entry<uint8_t>(lo0, offs, total_c, batch_base, batch,
+                                   cap_in, seed, n0, probes, anns, op, zero,
+                                   one, folded, supp, scratch, stream);
 }
 
 extern "C" int frontier_fill(const int32_t* total_c, const int32_t* offs,
@@ -819,5 +944,29 @@ extern "C" int frontier_fill(const int32_t* total_c, const int32_t* offs,
   frontier_fill_kernel<<<(unsigned int)blocks, threads, 0, stream>>>(
       total_c, offs, lo0, cap_in, seed, n0, *probes, start, n, vals_o,
       row_o, p0_o, keep_o, pos_o);
+  return (int)cudaGetLastError();
+}
+
+// The batched fill (frontier_fill_batched_kernel): total_c [batch]; offs,
+// lo0 and the probes' bounds [batch, cap_in]; the outputs [batch, n] and
+// pos_o [n_probes, batch, n].
+extern "C" int frontier_fill_batched(const int32_t* total_c,
+                                     const int32_t* offs, const int32_t* lo0,
+                                     int32_t cap_in, const int32_t* seed,
+                                     int32_t n0, const FillProbes* probes,
+                                     int64_t batch, int64_t n,
+                                     int32_t* vals_o, int32_t* row_o,
+                                     int32_t* p0_o, bool* keep_o,
+                                     int32_t* pos_o, cudaStream_t stream) {
+  if (n <= 0 || batch <= 0) return 0;
+  if (probes->count < 0 || probes->count > FF_MAX_PROBES || cap_in < 1)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const int64_t per_query = (n + 31) / 32 * 32;
+  const int64_t blocks = (batch * per_query + threads - 1) / threads;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  frontier_fill_batched_kernel<<<(unsigned int)blocks, threads, 0, stream>>>(
+      total_c, offs, lo0, cap_in, seed, n0, *probes, batch, n, per_query,
+      vals_o, row_o, p0_o, keep_o, pos_o);
   return (int)cudaGetLastError();
 }

@@ -21,6 +21,14 @@ ends and the candidates and a small fix-up for the rows that cross its
 blocks, counted as one launch.  ``total`` stays on the device and the
 grid and scratch come from the card, so the call reads nothing on the
 host.
+
+``fill_batched`` and ``fold_batched`` are their batched forms, for the
+batched bag program of prepared queries re-bound B times: the levels
+(seed, probe values, leaf annotations) are shared, every per-query input
+carries a leading ``B`` (``[B, cap_in]`` per-row arrays, ``[B]`` totals),
+and each launches once for the whole batch.  Each equals its plain
+version stacked over the batch.  ``fill`` and ``fold`` hand rows with a
+leading ``B`` to them, so a caller passes one query or a batch alike.
 """
 from __future__ import annotations
 
@@ -30,10 +38,13 @@ from typing import Sequence, Tuple
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.frontier_fill.ref import fill_ref, fold_ref
+from repro_torch.kernels.frontier_fill.ref import (fill_batched_ref, fill_ref,
+                                                   fold_batched_ref, fold_ref)
 
 NAME = "frontier_fill"
 FOLD_NAME = "frontier_fold"
+BATCHED_NAME = "frontier_fill_batched"
+FOLD_BATCHED_NAME = "frontier_fold_batched"
 MAX_PROBES = 8   # FF_MAX_PROBES in the CUDA source
 # semiring name -> (kernel entry suffix, ctypes scalar, op code)
 _FOLD_OPS = {"count": ("i32", ctypes.c_int32, 0),
@@ -67,16 +78,38 @@ def _probes_desc(probes) -> _Probes:
     return desc
 
 
-def _check_probes(probes, cap_in: int, dev) -> None:
+def _check_probes(probes, shape: Tuple[int, ...], dev) -> None:
+    """The probes' values and their ``shape`` bounds (``[cap_in]``, or
+    ``[B, cap_in]`` for a batch)."""
     if len(probes) > MAX_PROBES:
         raise ValueError(f"at most {MAX_PROBES} probe atoms, got "
                          f"{len(probes)}")
     for k, (vk, lo_k, hi_k) in enumerate(probes):
         common.check_tensor(vk, f"probe{k}.values", torch.int32, dev)
-        common.check_tensor(lo_k, f"probe{k}.lo", torch.int32, dev)
-        common.check_tensor(hi_k, f"probe{k}.hi", torch.int32, dev)
-        if lo_k.shape[0] != cap_in or hi_k.shape[0] != cap_in:
-            raise ValueError(f"probe{k} bounds must have length {cap_in}")
+        common.check_tensor(lo_k, f"probe{k}.lo", torch.int32, dev,
+                            ndim=len(shape))
+        common.check_tensor(hi_k, f"probe{k}.hi", torch.int32, dev,
+                            ndim=len(shape))
+        if tuple(lo_k.shape) != shape or tuple(hi_k.shape) != shape:
+            raise ValueError(f"probe{k} bounds must have shape {shape}")
+
+
+def _check_rows(offs, lo0, total, dev, names) -> Tuple[int, ...]:
+    """Check the per-row arrays ``offs``/``lo0`` (``[cap_in]`` with a 0-d
+    ``total``, or ``[B, cap_in]`` with a ``[B]`` one) and return their
+    shape."""
+    nd = offs.dim()
+    common.check_tensor(total, names[0], torch.int32, dev, ndim=nd - 1)
+    common.check_tensor(offs, names[1], torch.int32, dev, ndim=nd)
+    common.check_tensor(lo0, names[2], torch.int32, dev, ndim=nd)
+    shape = tuple(offs.shape)
+    if min(shape) < 1 or tuple(lo0.shape) != shape \
+            or tuple(total.shape) != shape[:-1]:
+        raise ValueError(f"{names[1]}/{names[2]} must share a shape of "
+                         f"sizes >= 1 and {names[0]} its leading one, got "
+                         f"{shape}, {tuple(lo0.shape)} and "
+                         f"{tuple(total.shape)}")
+    return shape
 
 
 def _lib():
@@ -100,16 +133,14 @@ def fill(total_c: torch.Tensor, offs: torch.Tensor, lo0: torch.Tensor,
     seed : int32 [n0] — the seed atom's level values
     probes : ``(values_k [nk], lo_k [cap_in], hi_k [cap_in])`` int32 each
     """
+    if offs.dim() == 2:
+        if start:
+            raise ValueError("a batch fills each query's slots from 0")
+        return fill_batched(total_c, offs, lo0, seed, probes, n)
     dev = offs.device
-    cap_in = int(offs.shape[0])
-    common.check_tensor(total_c, "total_c", torch.int32, dev, ndim=0)
-    common.check_tensor(offs, "offs", torch.int32, dev)
-    common.check_tensor(lo0, "lo0", torch.int32, dev)
+    shape = _check_rows(offs, lo0, total_c, dev, ("total_c", "offs", "lo0"))
     common.check_tensor(seed, "seed", torch.int32, dev)
-    if cap_in < 1 or lo0.shape[0] != cap_in:
-        raise ValueError(f"offs/lo0 must share a length >= 1, got "
-                         f"{cap_in} and {lo0.shape[0]}")
-    _check_probes(probes, cap_in, dev)
+    _check_probes(probes, shape, dev)
     if not common.kernel_device(offs, NAME):
         return fill_ref(total_c, offs, lo0, seed, probes, start, n)
 
@@ -121,13 +152,14 @@ def fill(total_c: torch.Tensor, offs: torch.Tensor, lo0: torch.Tensor,
     return outs[:4] + (tuple(outs[4]),)
 
 
-def _outputs(n_probes: int, n: int, dev):
-    """``fill``'s output buffers: ``(vals, row, p0, keep, pos)`` with
-    ``pos`` one ``[n_probes, n]`` tensor."""
+def _outputs(n_probes: int, n: int, dev, batch: Tuple[int, ...] = ()):
+    """``fill``'s output buffers: ``(vals, row, p0, keep, pos)``, each
+    ``[*batch, n]``, with ``pos`` one ``[n_probes, *batch, n]`` tensor."""
     def i32(*shape):
         return torch.empty(shape, dtype=torch.int32, device=dev)
-    return (i32(n), i32(n), i32(n),
-            torch.empty(n, dtype=torch.bool, device=dev), i32(n_probes, n))
+    return (i32(*batch, n), i32(*batch, n), i32(*batch, n),
+            torch.empty(*batch, n, dtype=torch.bool, device=dev),
+            i32(n_probes, *batch, n))
 
 
 def _launch(total_c, offs, lo0, seed, probes, start: int, n: int,
@@ -149,9 +181,10 @@ def _fold_lib(suffix: str, scalar):
     fn = getattr(lib, f"frontier_fold_{suffix}")
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int32, p, ctypes.c_int32,
-                       ctypes.POINTER(_Probes), ctypes.POINTER(_FoldAnns),
-                       ctypes.c_int32, scalar, scalar, p, p, p, p]
+        fn.argtypes = [p, p, p, p, ctypes.c_int64, ctypes.c_int32, p,
+                       ctypes.c_int32, ctypes.POINTER(_Probes),
+                       ctypes.POINTER(_FoldAnns), ctypes.c_int32, scalar,
+                       scalar, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.frontier_fold_scratch_bytes.restype = ctypes.c_int64
     return fn, lib.frontier_fold_scratch_bytes
@@ -173,16 +206,21 @@ def fold(lo0: torch.Tensor, offs: torch.Tensor, total: torch.Tensor,
     sr : the semiring (name, dtype, zero, one, add, mul, segment_reduce)
     Returns ``(folded [cap_in] sr.dtype, support [cap_in] int32)``.
     """
+    if offs.dim() == 2:
+        return fold_batched(lo0, offs, total, seed, probes, leaf_anns, sr)
     dev = lo0.device
-    cap_in = int(lo0.shape[0])
-    common.check_tensor(lo0, "lo0", torch.int32, dev)
-    common.check_tensor(offs, "offs", torch.int32, dev)
-    common.check_tensor(total, "total", torch.int32, dev, ndim=0)
+    _check_fold(lo0, offs, total, seed, probes, leaf_anns, sr)
+    if not common.kernel_device(lo0, FOLD_NAME):
+        return fold_ref(lo0, offs, total, seed, probes, leaf_anns, sr)
+    return _launch_fold(lo0, offs, total, None, seed, probes, leaf_anns, sr,
+                        FOLD_NAME)
+
+
+def _check_fold(lo0, offs, total, seed, probes, leaf_anns, sr) -> None:
+    dev = lo0.device
+    shape = _check_rows(offs, lo0, total, dev, ("total", "offs", "lo0"))
     common.check_tensor(seed, "seed", torch.int32, dev)
-    if cap_in < 1 or offs.shape[0] != cap_in:
-        raise ValueError(f"lo0/offs must share a length >= 1, got "
-                         f"{cap_in} and {offs.shape[0]}")
-    _check_probes(probes, cap_in, dev)
+    _check_probes(probes, shape, dev)
     if len(leaf_anns) != len(probes) + 1:
         raise ValueError("one leaf-annotation entry per constraining atom")
     for k, la in enumerate(leaf_anns):
@@ -190,23 +228,95 @@ def fold(lo0: torch.Tensor, offs: torch.Tensor, total: torch.Tensor,
             common.check_tensor(la, f"leaf_ann{k}", sr.dtype, dev)
     if sr.name not in _FOLD_OPS:
         raise ValueError(f"no fold kernel for semiring {sr.name!r}")
-    if not common.kernel_device(lo0, FOLD_NAME):
-        return fold_ref(lo0, offs, total, seed, probes, leaf_anns, sr)
 
+
+def _launch_fold(lo0, offs, total, base, seed, probes, leaf_anns, sr,
+                 name: str):
+    """Launch the fold on the card over ``lo0``'s rows (one query's, or a
+    batch's with its ``base`` scan of the totals) and count it."""
+    dev = lo0.device
     suffix, scalar, op = _FOLD_OPS[sr.name]
     fn, scratch_bytes = _fold_lib(suffix, scalar)
-    folded = torch.empty(cap_in, dtype=sr.dtype, device=dev)
-    supp = torch.empty(cap_in, dtype=torch.int32, device=dev)
+    folded = torch.empty(lo0.shape, dtype=sr.dtype, device=dev)
+    supp = torch.empty(lo0.shape, dtype=torch.int32, device=dev)
     scratch = torch.empty(scratch_bytes(), dtype=torch.uint8, device=dev)
     anns = _FoldAnns()
     for k, la in enumerate(leaf_anns):
         if la is not None:
             anns.p[k] = la.data_ptr()
             anns.n[k] = int(la.shape[0])
-    err = fn(lo0.data_ptr(), offs.data_ptr(), total.data_ptr(), cap_in,
-             seed.data_ptr(), int(seed.shape[0]),
+    batch = int(lo0.shape[0]) if base is not None else 1
+    err = fn(lo0.data_ptr(), offs.data_ptr(), total.data_ptr(),
+             None if base is None else base.data_ptr(), batch,
+             int(lo0.shape[-1]), seed.data_ptr(), int(seed.shape[0]),
              ctypes.byref(_probes_desc(probes)), ctypes.byref(anns), op,
              scalar(sr.zero), scalar(sr.one), folded.data_ptr(),
              supp.data_ptr(), scratch.data_ptr(), common.stream_ptr(dev))
-    common.check_launch(err, FOLD_NAME)
+    common.check_launch(err, name)
     return folded, supp
+
+
+def fill_batched(total_c: torch.Tensor, offs: torch.Tensor,
+                 lo0: torch.Tensor, seed: torch.Tensor,
+                 probes: Sequence[Tuple], n: int):
+    """``fill`` of B queries over the same levels, in ONE launch: query
+    ``b``'s output slots ``[0, n)`` from its ``total_c[b]``,
+    ``offs[b]``, ``lo0[b]`` and probe bounds ``lo_k[b]``, ``hi_k[b]``
+    (``[B, cap_in]`` each; the probes' values and ``seed`` shared).
+    Returns ``(vals, row, p0, keep, poss)``, each ``[B, n]``."""
+    dev = offs.device
+    if offs.dim() != 2:
+        raise ValueError("fill_batched takes [B, cap_in] rows")
+    shape = _check_rows(offs, lo0, total_c, dev, ("total_c", "offs", "lo0"))
+    common.check_tensor(seed, "seed", torch.int32, dev)
+    _check_probes(probes, shape, dev)
+    if not common.kernel_device(offs, BATCHED_NAME):
+        return fill_batched_ref(total_c, offs, lo0, seed, probes, n)
+
+    batch, cap_in = shape
+    outs = _outputs(len(probes), n, dev, (batch,))
+    if n > 0:
+        fn = _lib_batched()
+        vals, row, p0, keep, pos = outs
+        common.check_launch(fn(
+            total_c.data_ptr(), offs.data_ptr(), lo0.data_ptr(), cap_in,
+            seed.data_ptr(), int(seed.shape[0]),
+            ctypes.byref(_probes_desc(probes)), batch, int(n),
+            vals.data_ptr(), row.data_ptr(), p0.data_ptr(), keep.data_ptr(),
+            pos.data_ptr(), common.stream_ptr(dev)), BATCHED_NAME)
+    return outs[:4] + (tuple(outs[4]),)
+
+
+def _lib_batched():
+    fn = common.library(NAME).frontier_fill_batched
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, ctypes.c_int32, p, ctypes.c_int32,
+                       ctypes.POINTER(_Probes), ctypes.c_int64,
+                       ctypes.c_int64, p, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fold_batched(lo0: torch.Tensor, offs: torch.Tensor, total: torch.Tensor,
+                 seed: torch.Tensor, probes: Sequence[Tuple],
+                 leaf_anns: Sequence, sr):
+    """``fold`` of B queries over the same levels, in ONE launch:
+    ``lo0``, ``offs`` and the probe bounds ``[B, cap_in]``, ``total``
+    ``[B]``; returns ``(folded, support)``, each ``[B, cap_in]``.  The
+    kernel folds the batch as one merge path over its ``B * cap_in``
+    rows; the queries' totals are scanned in int64 on the card (their
+    sum may pass 2^31), so the call reads nothing on the host."""
+    if offs.dim() != 2:
+        raise ValueError("fold_batched takes [B, cap_in] rows")
+    _check_fold(lo0, offs, total, seed, probes, leaf_anns, sr)
+    if not common.kernel_device(lo0, FOLD_BATCHED_NAME):
+        return fold_batched_ref(lo0, offs, total, seed, probes, leaf_anns,
+                                sr)
+    if lo0.numel() > (1 << 31) - 1:
+        raise ValueError(f"a batch of {lo0.numel()} rows passes int32")
+    base = torch.zeros(int(lo0.shape[0]) + 1, dtype=torch.int64,
+                       device=lo0.device)
+    torch.cumsum(total, 0, dtype=torch.int64, out=base[1:])
+    return _launch_fold(lo0, offs, total, base, seed, probes, leaf_anns, sr,
+                        FOLD_BATCHED_NAME)

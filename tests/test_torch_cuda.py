@@ -8,7 +8,11 @@ itself from launch to launch; ``fm_interaction`` within 1e-5
 of each row's absolute scale), one launch counted per launch,
 no plain fallback for a CUDA tensor, the entry points on the card by
 default, and the device engine and the FM serving path on the card equal
-to the same code on the CPU (and the engine to the host oracle).  Marked
+to the same code on the CPU (and the engine to the host oracle).  The
+batched fill and fold equal their plain versions and the single-query
+kernels, with more queries than ``gridDim.y`` holds and a batch whose
+candidates pass 2^31, and the batched serving path on the card equals
+its run on the CPU.  Marked
 ``cuda``; every test skips without a card.  Run on a machine with one:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -706,6 +710,282 @@ def test_fold_makes_no_host_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ------------------------------------------------------------ batched forms
+def _batch(dev, seed, batch, cap_in, n0, max_cnt, n_probes):
+    """Seeded batched fill/fold inputs over shared levels: per-query seed
+    starts, counts, offsets, totals and probe bounds ``[batch, cap_in]``;
+    query 0 has no candidate.  Returns ``(totals, offs, lo0, seed,
+    probes)`` on the card, totals uncapped."""
+    r = np.random.default_rng(seed)
+    seed_vals = np.sort(r.choice(4 * n0, size=n0, replace=False))
+    lo0 = r.integers(0, n0, (batch, cap_in))
+    cnt = np.minimum(r.integers(0, max_cnt + 1, (batch, cap_in)), n0 - lo0)
+    cnt[0] = 0
+    probes = []
+    for _ in range(n_probes):
+        nk = int(r.integers(n0 // 2, 2 * n0))
+        vk = np.sort(r.choice(4 * n0, size=nk, replace=False))
+        lo = r.integers(0, nk, (batch, cap_in))
+        hi = np.minimum(lo + r.integers(1, nk, (batch, cap_in)), nk)
+        probes.append((t32(vk, dev), t32(lo, dev), t32(hi, dev)))
+    return (t32(cnt.sum(1), dev), t32(np.cumsum(cnt, 1) - cnt, dev),
+            t32(lo0, dev), t32(seed_vals, dev), tuple(probes))
+
+
+def _one(probes, b):
+    return tuple((v, lo[b], hi[b]) for v, lo, hi in probes)
+
+
+def _check_fill_batched(total, offs, lo0, seed, probes, n, singles=True):
+    """One launch counted, bit-equal to the plain version and (with
+    ``singles``) to the single-query kernel query by query; two launches
+    equal."""
+    from repro_torch.kernels.frontier_fill.ref import fill_batched_ref
+
+    args = (total.clamp(max=n), offs, lo0, seed, probes, n)
+    before = common.LAUNCHES["frontier_fill_batched"]
+    got = fill_ops.fill_batched(*args)
+    assert common.LAUNCHES["frontier_fill_batched"] == before + 1
+    want = fill_batched_ref(*args)
+    flat = list(got[:4]) + list(got[4])
+    for x, y in zip(flat, list(want[:4]) + list(want[4])):
+        assert torch.equal(x, y)
+    again = fill_ops.fill_batched(*args)
+    assert all(torch.equal(x, y)
+               for x, y in zip(flat, list(again[:4]) + list(again[4])))
+    if singles:
+        for b in range(offs.shape[0]):
+            one = fill_ops.fill(args[0][b], offs[b], lo0[b], seed,
+                                _one(probes, b), 0, n)
+            for x, y in zip(flat, list(one[:4]) + list(one[4])):
+                assert torch.equal(x[b], y)
+    return got
+
+
+@pytest.mark.parametrize("n_probes", [0, 1, 2, fill_ops.MAX_PROBES])
+def test_fill_batched_matches_plain_and_single(dev, n_probes):
+    total, offs, lo0, seed, probes = _batch(dev, 21 + n_probes, 40, 600,
+                                            20_000, 40, n_probes)
+    n = int(total.max()) // 2 + 37   # some queries past capacity
+    _check_fill_batched(total, offs, lo0, seed, probes, n)
+
+
+def test_fill_batched_of_one_is_the_single_entry(dev):
+    total, offs, lo0, seed, probes = _batch(dev, 23, 2, 3000, 50_000, 60, 2)
+    n = int(total[1])
+    one = _check_fill_batched(total[1:], offs[1:], lo0[1:], seed,
+                              tuple((v, lo[1:], hi[1:])
+                                    for v, lo, hi in probes), n)
+    single = fill_ops.fill(total[1], offs[1], lo0[1], seed,
+                           _one(probes, 1), 0, n)
+    for x, y in zip(list(one[:4]) + list(one[4]),
+                    list(single[:4]) + list(single[4])):
+        assert torch.equal(x[0], y)
+
+
+def test_fill_batched_more_queries_than_grid_y(dev):
+    """70,000 queries of 4 rows and 8 slots: more queries than gridDim.y
+    holds (65,535), one launch."""
+    total, offs, lo0, seed, probes = _batch(dev, 29, 70_000, 4, 5000, 4, 2)
+    got = _check_fill_batched(total, offs, lo0, seed, probes, 8,
+                              singles=False)
+    assert got[0].shape == (70_000, 8)
+
+
+def _check_fold_batched(args, sum_rtol=1e-5, singles=True):
+    """One launch counted; support bit for bit and the fold bit for bit
+    (or a float sum within ``sum_rtol`` of the plain version's sums in
+    float64) against the plain version, and (with ``singles``) the same
+    against the single-query kernel query by query; two launches
+    equal."""
+    import dataclasses
+
+    from repro_torch.core import semiring as S
+    from repro_torch.kernels.frontier_fill.ref import fold_batched_ref
+
+    sr = args[-1]
+    before = common.LAUNCHES["frontier_fold_batched"]
+    folded, supp = fill_ops.fold_batched(*args)
+    assert common.LAUNCHES["frontier_fold_batched"] == before + 1
+    want, want_supp = fold_batched_ref(*args)
+    assert torch.equal(supp, want_supp)
+    if sr.name == "sum_f32":
+        f64 = dataclasses.replace(
+            sr, dtype=torch.float64,
+            segment_reduce=S._segment("sum", torch.float64, 0.0))
+        exact, _ = fold_batched_ref(
+            *args[:5], tuple(None if a is None else a.double()
+                             for a in args[5]), f64)
+        torch.testing.assert_close(folded.double(), exact, rtol=sum_rtol,
+                                   atol=0)
+    else:
+        assert torch.equal(folded, want)
+    again = fill_ops.fold_batched(*args)
+    assert torch.equal(again[0], folded) and torch.equal(again[1], supp)
+    if singles:
+        lo0, offs, total, seed, probes, anns, _sr = args
+        for b in range(lo0.shape[0]):
+            f1, s1 = fill_ops.fold(lo0[b], offs[b], total[b], seed,
+                                   _one(probes, b), anns, sr)
+            assert torch.equal(s1, supp[b])
+            if sr.name == "sum_f32":
+                torch.testing.assert_close(f1, folded[b], rtol=sum_rtol,
+                                           atol=0)
+            else:
+                assert torch.equal(f1, folded[b])
+    return folded, supp
+
+
+def _fold_batch_args(dev, sr, batch_inputs, annotate):
+    total, offs, lo0, seed, probes = batch_inputs
+    r = np.random.default_rng(31)
+    anns = [None] * (len(probes) + 1)
+    if annotate:
+        sizes = [int(seed.shape[0])] + [int(p[0].shape[0]) for p in probes]
+        for k in (0, -1):
+            a = r.random(sizes[k]).astype(np.float32) * 3
+            a = np.floor(a) if sr.name == "count" else a
+            if sr.name == "boolean":
+                a = a > 0.5
+            anns[k] = torch.as_tensor(a, device=dev).to(sr.dtype)
+    return (lo0, offs, total, seed, probes, tuple(anns), sr)
+
+
+@pytest.mark.parametrize("srname", FOLD_SEMIRINGS)
+def test_fold_batched_matches_plain_and_single(dev, srname):
+    from repro_torch.core import semiring as S
+
+    sr = S.BY_NAME[srname]
+    inputs = _batch(dev, 41, 24, 2000, 30_000, 200, 2)
+    _check_fold_batched(_fold_batch_args(dev, sr, inputs, True))
+
+
+@pytest.mark.parametrize("n_probes", [0, 1, fill_ops.MAX_PROBES])
+def test_fold_batched_probe_counts(dev, n_probes):
+    from repro_torch.core import semiring as S
+
+    inputs = _batch(dev, 43 + n_probes, 12, 1500, 10_000, 60, n_probes)
+    _check_fold_batched(_fold_batch_args(dev, S.COUNT, inputs, True))
+
+
+def test_fold_batched_of_one_is_the_single_entry(dev):
+    from repro_torch.core import semiring as S
+
+    total, offs, lo0, seed, probes = _batch(dev, 47, 2, 5000, 40_000, 90, 2)
+    args = (lo0[1:], offs[1:], total[1:], seed,
+            tuple((v, lo[1:], hi[1:]) for v, lo, hi in probes),
+            (None,) * 3, S.COUNT)
+    folded, supp = _check_fold_batched(args)
+    f1, s1 = fill_ops.fold(lo0[1], offs[1], total[1], seed, _one(probes, 1),
+                           (None,) * 3, S.COUNT)
+    assert torch.equal(folded[0], f1) and torch.equal(supp[0], s1)
+
+
+def test_fold_batched_more_queries_than_grid_y(dev):
+    """70,000 queries of 4 rows each: one launch, one merge path over
+    280,000 rows."""
+    from repro_torch.core import semiring as S
+
+    inputs = _batch(dev, 53, 70_000, 4, 5000, 6, 1)
+    _check_fold_batched(_fold_batch_args(dev, S.COUNT, inputs, True),
+                        singles=False)
+
+
+def test_fold_batched_total_past_int32(dev):
+    """17 single-row queries, each over its own 2^27-value seed segment
+    (query b from seed position b on), summing 17 * 2^27 > 2^31
+    candidates; the count of each row is the sum of the seed's leaf
+    annotations over its segment, so a position wrapped at 2^31 would
+    show.  Held against the single-query plain version and kernel query
+    by query (the batched plain version would expand every candidate at
+    once)."""
+    from repro_torch.core import semiring as S
+
+    batch, seg = 17, 1 << 27
+    n0 = seg + batch
+    assert batch * seg > (1 << 31)
+    seed = torch.arange(n0, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    ann = torch.randint(0, 3, (n0,), generator=g, dtype=torch.int32,
+                        device=dev)
+    lo0 = torch.arange(batch, dtype=torch.int32, device=dev).reshape(-1, 1)
+    offs = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    total = torch.full((batch,), seg, dtype=torch.int32, device=dev)
+    args = (lo0, offs, total, seed, (), (ann,), S.COUNT)
+    before = common.LAUNCHES["frontier_fold_batched"]
+    folded, supp = fill_ops.fold_batched(*args)
+    assert common.LAUNCHES["frontier_fold_batched"] == before + 1
+    again = fill_ops.fold_batched(*args)
+    assert torch.equal(again[0], folded) and torch.equal(again[1], supp)
+    csum = torch.cumsum(ann.long(), 0)
+    for b in range(batch):
+        one = (lo0[b], offs[b], total[b], seed, (), (ann,), S.COUNT)
+        want = fold_ref(*one)
+        assert torch.equal(folded[b], want[0]) and torch.equal(supp[b],
+                                                               want[1])
+        single = fill_ops.fold(*one)
+        assert torch.equal(folded[b], single[0])
+        expect = int(csum[b + seg - 1] - (csum[b - 1] if b else 0))
+        assert int(folded[b, 0]) == expect and int(supp[b, 0]) == seg
+
+
+def test_batched_forms_make_no_host_sync(dev):
+    from repro_torch.core import semiring as S
+
+    total, offs, lo0, seed, probes = _batch(dev, 59, 16, 1000, 10_000, 30,
+                                            2)
+    fargs = (total.clamp(max=4096), offs, lo0, seed, probes, 4096)
+    gargs = (lo0, offs, total, seed, probes, (None,) * 3, S.COUNT)
+    want = (fill_ops.fill_batched(*fargs), fill_ops.fold_batched(*gargs))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = (fill_ops.fill_batched(*fargs), fill_ops.fold_batched(*gargs))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[0][0], want[0][0])
+    assert torch.equal(got[1][0], want[1][0])
+
+
+def test_batched_serving_path_on_card_matches_cpu(dev):
+    """Prepared triangle and 4-clique queries re-bound to a small
+    power-law graph's hubs: the batched path on the card equals the same
+    code on the CPU, answer and dispatch summary, and launches the
+    batched kernels."""
+    from repro_torch.serve import QueryServer
+
+    g = powerlaw_graph(300, 8, 2.0, seed=0)
+    src, dst = edge_list(g)
+    hubs = [int(v) for v in np.argsort(g.degrees)[::-1][:8]]
+    texts = ["C(;w:long) :- R(0,y),S(y,z),T(0,z); w=<<COUNT(*)>>.",
+             "L(y,z) :- R(0,y),S(y,z),T(0,z).",
+             "C(;w:long) :- R(0,y),S(y,z),T(0,z),U(0,a),X(y,a),Y(z,a); "
+             "w=<<COUNT(*)>>."]
+    out = []
+    for device in ("cuda", "cpu"):
+        srv = QueryServer(device=device)
+        srv.load_graph("t", "R", src, dst)
+        for al in ("S", "T", "U", "X", "Y"):
+            srv.alias("t", al, "R")
+        before = dict(common.LAUNCHES)
+        res = [srv.prepare("t", q).run_batch(hubs) for q in texts]
+        launched = {k: common.LAUNCHES[k] - before.get(k, 0)
+                    for k in common.LAUNCHES}
+        out.append((res, srv.dispatch_summary(), launched))
+    (cres, cd, cl), (hres, hd, _hl) = out
+    assert cd == hd and cd["pipeline.batched_launches"] >= 3
+    for a, b in zip(cres, hres):
+        for x, y in zip(a, b):
+            assert x.vars == y.vars
+            for v in x.vars:
+                assert np.array_equal(x.columns[v], y.columns[v])
+            if y.annotation is not None:
+                assert np.array_equal(np.asarray(x.annotation),
+                                      np.asarray(y.annotation))
+    assert cl["frontier_fill_batched"] == cd["extend.pipeline_extends"]
+    assert cl["frontier_fold_batched"] == cd["pipeline.device_folds"]
 
 
 def test_cuda_tensor_never_takes_the_plain_version(dev):

@@ -2,7 +2,8 @@
 (with plan verification and the dispatch sanitizer), a materializing
 query, ``explain``, ``triangle_count_dense``, ``recursion.pagerank`` and
 the FM serving path (``forward``, ``batched_scores``,
-``retrieval_scores``) pulls in neither jax nor the ``repro`` package
+``retrieval_scores``) and the relational serving path (``QueryServer``
+batches, the memory model) pulls in neither jax nor the ``repro`` package
 (checked in a fresh interpreter), the generated program imports
 ``repro_torch.core``, no module of the port (nor ``chip_smoke.py``) has an
 import of either, and every entry point runs on the card — and refuses to
@@ -65,6 +66,20 @@ bulk = batched_scores(lambda c: fm.forward(params, c, cfg),
 assert np.array_equal(bulk, logits.numpy()), (bulk, logits)
 scores = fm.retrieval_scores(params, np.arange(16), np.arange(500), cfg)
 assert scores.shape == (500,) and bool(torch.isfinite(scores).all())
+from repro_torch.analysis.memory_budget import check_store
+from repro_torch.serve import QueryServer
+srv = QueryServer(device="cpu", max_graphs=1)
+for tenant in ("a", "b"):
+    srv.load_graph(tenant, "Edge", src, dst)
+    for a in W.ALIASES:
+        srv.alias(tenant, a, "Edge")
+q = "C(;w:long) :- R(0,y),S(y,z),T(0,z); w=<<COUNT(*)>>."
+tickets = [srv.submit("a", q, v) for v in range(4)]
+srv.drain()
+srv.run("b", q, 1)
+assert srv.dispatch_summary()["pipeline.batched_launches"] >= 1
+assert srv.counters["store.evictions"] == 1, srv.counters
+check_store(srv)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"count": count, "rows": rows, "leaked": leaked,
@@ -101,7 +116,8 @@ def test_no_port_module_imports_jax_or_repro():
         "analysis/plan_verify", "analysis/kernel_check",
         "kernels/materialize/ops", "kernels/triangle_mm/ops",
         "kernels/fm_interaction/ops", "models/recsys/fm", "data/recsys",
-        "serve/engine", "configs/fm")} <= names
+        "serve/engine", "configs/fm", "serve/query",
+        "analysis/memory_budget", "analysis/concurrency_lint")} <= names
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):
@@ -123,8 +139,9 @@ def test_device_backend_needs_a_card(monkeypatch):
 
 def test_entry_points_default_to_the_card(monkeypatch):
     """With no backend and no device named, the engine, the join, the
-    recursion entry points and ``fm.init`` go to ``cuda`` and raise
-    without a card; the CPU is taken only when asked for."""
+    recursion entry points, ``fm.init`` and the query server go to
+    ``cuda`` and raise without a card; the CPU is taken only when asked
+    for."""
     from repro_torch.core import recursion
     from repro_torch.core.backend import (DeviceBackend, NumpyBackend,
                                           make_backend)
@@ -132,6 +149,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from repro_torch.core.gj import GenericJoin
     from repro_torch.core.trie import CSRGraph, Trie
     from repro_torch.models.recsys import fm
+    from repro_torch.serve import QueryServer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     csr = CSRGraph.from_edges([0, 1], [1, 0])
@@ -142,11 +160,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: recursion.pagerank(csr),
                  lambda: recursion.sssp(csr, 0),
                  lambda: fm.init(fm.FMConfig(name="t", vocab_per_field=5),
-                                 torch.Generator())):
+                                 torch.Generator()),
+                 QueryServer):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             call()
     assert isinstance(make_backend("numpy"), NumpyBackend)
     assert Engine(device="cpu").backend.device.type == "cpu"
+    assert QueryServer(device="cpu").backend.device.type == "cpu"
     assert isinstance(make_backend(None, device="cpu"), DeviceBackend)
     assert recursion.pagerank(csr, device="cpu").shape == (2,)
     assert recursion.sssp(csr, 0, device="cpu").tolist() == [0.0, 1.0]

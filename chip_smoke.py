@@ -4,16 +4,29 @@
 Run from the root of a checkout on a machine with a card:
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --fold-cases [--repeat N] [--fold-profile]
+                          [--src DIR]
 
 ``--profile`` adds a breakdown of one warm full-size TRIANGLE_COUNT and
 one warm full-size ``TY`` (host functions by own time, device kernels by
 time) after the main and the materializing path.
 
+``--fold-cases`` runs the build and phase 8 alone, then times the batched
+fold's cases (a)-(i) on its captured calls (``--repeat`` times) and the
+single fold's cases (a)-(e) on phase 8's largest single-query call;
+``--fold-profile`` then splits each batched case's block-cycles by phase
+through a build of ``frontier_fill.cu`` with ``-DFOLD_PROFILE``.  The
+package and its kernels come from ``--src`` (default: this checkout's
+``src``), the cases from this script, so a checkout of another commit
+given as ``--src OTHER/src`` runs the same cases on its own kernels.  The
+last line is a JSON object of each run's median ms by case letter.
+
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. build: compile every CUDA kernel of the port from ``src/repro_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, in parallel), and print each
-   kernel's ptxas line (registers, stack frame, spills); the fill kernel's
+   kernel's ptxas line (registers, stack frame, spills); the fill's, the
+   batched fill's and every instance of the batched fold's two kernels
    must show no stack frame and no spill;
 2. main path, with every kernel launch counter set to 0 just before and
    read just after: ``Engine(backend="device")`` runs the Table 2 queries
@@ -140,12 +153,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    at density 0.5 (exact against the float64 plain version, two launches
    equal, timed beside ``torch.matmul``); the batched fill and fold on
    their largest serving calls, bit-equal, two launches equal, timed
-   beside the same rows launched as B single-query calls.
+   beside the same rows launched as B single-query calls, the call's
+   probe segments counted (distinct a query, their lengths), and the
+   batched fold on six cases built from its call (as it is, with no
+   candidate, cut to its live rows, those with no probe, with each probe
+   segment cut to 64 values, and with segments that differ from row to
+   row), each held and timed like the fold's, three more regimes (70,000
+   anchored queries of 4 rows, the same rows with row-dependent segments,
+   and the second tenant's ``4clique_at`` call) and the tests' anchored
+   batch.
 
 The last three lines of standard output are the kernel table (JSON), the
 card's ``name, power.limit`` from nvidia-smi, and the result line
 ``{"ok": true, "device": {...}}``.  Imports nothing of jax or ``repro``.
 """
+import argparse
 import collections
 import json
 import subprocess
@@ -991,6 +1013,170 @@ def fold_batched_work(args, fill_ops, torch):
     return shape, moved, ops, singles
 
 
+def segment_stats(args, torch):
+    """For each probe of a ``frontier_fold_batched`` call: how many
+    distinct ``(lo, hi)`` segments each query's live rows hold (min /
+    median / max over the queries) and those segments' lengths (min /
+    median / max)."""
+    _lo0, _offs, _total, _seed, probes, _anns, _sr = args
+    live = (fold_counts(args, torch) > 0).flatten()
+    parts = []
+    for k, (_v, lo, hi) in enumerate(probes):
+        batch, cap_in = lo.shape
+        query = torch.arange(batch, device=lo.device).repeat_interleave(
+            cap_in)
+        seg = torch.unique(torch.stack([query, lo.flatten().long(),
+                                        hi.flatten().long()], 1)[live],
+                           dim=0)
+        d = torch.bincount(seg[:, 0], minlength=batch).double()
+        lengths = (seg[:, 2] - seg[:, 1]).clamp(min=0).double()
+        shown = "none" if not lengths.numel() else (
+            f"{int(lengths.min())} / {float(lengths.median()):.0f} / "
+            f"{int(lengths.max())}")
+        parts.append(f"probe {k}: distinct segments a query "
+                     f"{int(d.min())} / {float(d.median()):.0f} / "
+                     f"{int(d.max())}, their lengths {shown}")
+    return "; ".join(parts) or "no probe"
+
+
+def row_dependent_case(args, torch, seed=0):
+    """The rows of a ``frontier_fold_batched`` call with one probe whose
+    segment differs from row to row, as ``4clique_at``'s ``X(y,a)``
+    builds it: probe level the seed level, live row ``r`` searching the
+    seed segment of another live row of its query (a seeded permutation),
+    dead rows an empty segment."""
+    lo0, offs, total, seed_v, _probes, anns, sr = args
+    counts = fold_counts(args, torch)
+    g = torch.Generator().manual_seed(seed)
+    lo, hi = torch.zeros_like(lo0), torch.zeros_like(lo0)
+    for b in range(lo0.shape[0]):
+        rows = torch.nonzero(counts[b] > 0).flatten()
+        other = rows[torch.randperm(rows.numel(), generator=g).to(
+            rows.device)]
+        lo[b, rows] = lo0[b, other]
+        hi[b, rows] = lo0[b, other] + counts[b, other]
+    return (lo0, offs, total, seed_v, ((seed_v, lo, hi),), (anns[0], None),
+            sr)
+
+
+def fold_batched_case_args(args, torch, small_call=None):
+    """The ``(label, arguments)`` of :func:`fold_batched_cases` (a)-(f)
+    built from one ``frontier_fold_batched`` call's arguments, then (g)
+    70,000 anchored queries of 4 rows over 5,000 adjacency lists
+    (:mod:`frontier_fill.batches`; most too small to fill a tile of the
+    fold), (h) those rows with segments that differ from row to row, and
+    (i) ``small_call``, if given."""
+    from repro_torch.kernels.frontier_fill.batches import anchored_batch
+    lo0, offs, total, seed, probes, anns, sr = args
+    live = fold_counts(args, torch) > 0
+    at = torch.arange(offs.shape[1], device=offs.device)
+    cut = max(int(torch.where(live, at, -1).max()) + 1, 1)
+
+    def rows(x):
+        return x[:, :cut].contiguous()
+
+    cut_probes = tuple((v, rows(lo), rows(hi)) for v, lo, hi in probes)
+    live_rows = (rows(lo0), rows(offs), total, seed, cut_probes, anns, sr)
+    cases = [("(a) the captured call", args),
+             ("(b) no candidate", (lo0, torch.zeros_like(offs),
+                                   torch.zeros_like(total), seed, probes,
+                                   anns, sr)),
+             ("(c) live rows", live_rows)]
+    if probes:
+        short = tuple((v, lo, torch.minimum(hi, lo + 64))
+                      for v, lo, hi in cut_probes)
+        cases += [("(d) live rows, no probe",
+                   live_rows[:4] + ((), anns[:1], sr)),
+                  ("(e) live rows, probe segments cut to 64 values",
+                   live_rows[:4] + (short, anns, sr))]
+    cases.append(("(f) row-dependent probe segments",
+                  row_dependent_case(live_rows, torch)))
+    for label, varied in (("(g) 70,000 anchored queries of 4 rows", ()),
+                          ("(h) 70,000 queries of 4 rows, row-dependent "
+                           "segments", range(70_000))):
+        total_m, offs_m, lo0_m, seed_m, probes_m = anchored_batch(
+            0, batch=70_000, cap_in=4, vertices=5_000, universe=200_000,
+            hub=2_000, varied=varied, device=offs.device)
+        cases.append((label, (lo0_m, offs_m, total_m, seed_m, probes_m,
+                              (None, None), sr)))
+    if small_call is not None:
+        cases.append(("(i) the second tenant's 4clique_at call",
+                      small_call))
+    return cases
+
+
+def fold_batched_cases(args, fold, plain, time_stats, torch,
+                       small_call=None):
+    """``frontier_fold_batched`` (``fold``) on cases built from the
+    captured call's own arguments (:func:`fold_batched_case_args`): (a)
+    the call as it is; (b) no candidate (totals and offsets zero: the
+    capacity rows alone); (c) each query cut to its live rows (``cap_in``
+    cut to the largest query's last live row + 1); (d) case (c) with no
+    probe (the seed reads and the merge alone); (e) case (c) with each
+    probe segment cut to its first 64 values (the share of the search
+    depth); (f) case (c)'s rows with a probe segment that differs from row
+    to row (:func:`row_dependent_case`); (g)-(i) as
+    :func:`fold_batched_case_args` says.  Each held against the plain
+    version (bit for bit; a float sum within rtol 1e-5), two launches
+    equal, timed (CUDA events, L2 flushed, median, min and max of 5):
+    printed lines, not table rows.  Returns each case's median ms by its
+    letter."""
+    cases = fold_batched_case_args(args, torch, small_call)
+    times = {}
+    for label, case in cases:
+        sr = case[6]
+        got = fold(*case)
+        check(fold_equal(got, plain(*case), sr, torch),
+              f"frontier_fold_batched, {label}: differs from its plain "
+              "version")
+        again = fold(*case)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"frontier_fold_batched, {label}: two launches differ")
+        ms = time_stats(lambda: fold(*case), 5)
+        times[label[1]] = ms[0]
+        cands, moved, ops = fold_work(case, torch)
+        log(f"[kernel] frontier_fold_batched, {label}: batch="
+            f"{int(case[0].shape[0])} rows={int(case[0].shape[1])} a query "
+            f"live_rows={int((fold_counts(case, torch) > 0).sum())} "
+            f"candidates={cands} probes={len(case[4])} semiring={sr.name} "
+            f"({segment_stats(case, torch)}); equal to the plain version, "
+            f"two launches equal; kernel {ms[0]:.4f} ms (min {ms[1]:.4f}, "
+            f"max {ms[2]:.4f}; CUDA events, L2 flushed, median of 5), bound "
+            f"{max(moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3:.4f}"
+            f" ms (bytes {moved / HBM_BYTES_PER_S * 1e3:.4f} ms; operations "
+            f"{ops / INT32_OPS_PER_S * 1e3:.4f} ms)")
+    return times
+
+
+def anchored_fold_check(fill_ops, plain, time_stats, torch):
+    """``frontier_fold_batched`` on the tests' anchored batch
+    (``kernels.frontier_fill.batches``) at the serving call's width, 64
+    queries of up to 4,096 rows over 50,000 adjacency lists: segments
+    that stage beside the hub's 2,000,000-value range, which does not, an
+    empty one and a row-dependent query.  Held against the plain version,
+    two launches equal, and timed (CUDA events, L2 flushed, median of 5):
+    a printed line."""
+    from repro_torch.core import semiring as S
+    from repro_torch.kernels.frontier_fill.batches import anchored_batch
+    total, offs, lo0, seed, probes = anchored_batch(
+        0, batch=64, cap_in=4096, vertices=50_000, universe=2_000_000,
+        hub=20_000, empty=(2,), varied=(3,), device="cuda")
+    args = (lo0, offs, total, seed, probes, (None, None), S.COUNT)
+    got = fill_ops.fold_batched(*args)
+    check(fold_equal(got, plain(*args), S.COUNT, torch),
+          "frontier_fold_batched, anchored batch: differs from its plain "
+          "version")
+    check(all(torch.equal(x, y) for x, y in
+              zip(got, fill_ops.fold_batched(*args))),
+          "frontier_fold_batched, anchored batch: two launches differ")
+    ms = time_stats(lambda: fill_ops.fold_batched(*args), 5)[0]
+    log(f"[kernel] frontier_fold_batched, anchored batch (the tests' "
+        f"builder): batch=64 rows=4096 a query candidates="
+        f"{int(total.long().sum())} ({segment_stats(args, torch)}); equal "
+        f"to the plain version, two launches equal; kernel {ms:.4f} ms "
+        f"(CUDA events, L2 flushed, median of 5)")
+
+
 def fold_equal(got, want, sr, torch):
     """Support bit for bit; the fold bit for bit, or for a float sum
     within float32 rounding of its terms' order (rtol 1e-5)."""
@@ -1023,10 +1209,12 @@ def fold_cases(args, fill_ops, plain, time_stats, torch):
     candidate (the cost of the capacity alone); (c) the per-row arrays
     cut to the live prefix, the rows up to the last with a candidate
     (the cost of the candidates alone); (d) case (c) with only the first
-    probe (the share of the searches); and (e) one hub row
-    (:func:`hub_case`) with as many probes.  Each held against the plain
+    probe (the share of the searches); (e) one hub row
+    (:func:`hub_case`) with as many probes, and (f) with two if the call
+    has not two.  Each held against the plain
     version, two launches equal, timed (CUDA events, L2 flushed, median
-    of 5): printed lines, not table rows."""
+    of 5): printed lines, not table rows.  Returns each case's ms by its
+    letter."""
     lo0, offs, total, seed, probes, anns, sr = args
     live = torch.nonzero(fold_counts(args, torch)).flatten()
     cut = int(live[-1]) + 1 if live.numel() else 1
@@ -1042,6 +1230,10 @@ def fold_cases(args, fill_ops, plain, time_stats, torch):
         ("(d) live prefix, one probe", (lo0[:cut], offs[:cut], total, seed,
                                         cut_probes[:1], anns[:2], sr)),
         ("(e) one hub row", hub))
+    if len(probes) != 2:  # the search loop of two probes in lockstep too
+        cases += (("(f) one hub row, two probes",
+                   hub_case(2, sr, seed.device, torch)),)
+    times = {}
     for label, case in cases:
         if label.startswith("(d)") and not probes:
             continue
@@ -1052,6 +1244,7 @@ def fold_cases(args, fill_ops, plain, time_stats, torch):
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"frontier_fold, {label}: two launches differ")
         ms = time_stats(lambda: fill_ops.fold(*case), 5)[0]
+        times[label[1]] = ms
         cands, moved, ops = fold_work(case, torch)
         log(f"[kernel] frontier_fold, {label}: rows={int(case[0].shape[0])} "
             f"live_rows={int((fold_counts(case, torch) > 0).sum())} "
@@ -1062,6 +1255,7 @@ def fold_cases(args, fill_ops, plain, time_stats, torch):
             f"{max(moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3:.4f}"
             f" ms (bytes {moved / HBM_BYTES_PER_S * 1e3:.4f} ms, {moved} "
             f"bytes; operations {ops / INT32_OPS_PER_S * 1e3:.4f} ms)")
+    return times
 
 
 def fill_hub_case(device, torch, n=1_000_000):
@@ -1682,7 +1876,8 @@ def serving_path(src, dst, g, torch):
     the full tenant is evicted and its re-query equals its first answer,
     and ``check_store`` holds the model against the live bytes.  Returns
     the phase's kernel launches and the captures of the batched fill and
-    fold."""
+    fold (and, as ``frontier_fold_batched.small``, of the second tenant's
+    batched fold)."""
     import numpy as np
     from repro_torch.analysis.memory_budget import (check_store,
                                                     trie_device_bytes)
@@ -1843,6 +2038,8 @@ def serving_path(src, dst, g, torch):
     small_hubs = [int(v) for v in
                   np.argsort(g2.degrees)[::-1][:SERVE_SMALL_BINDINGS]]
     mem = {"before": torch.cuda.memory_allocated()}
+    small_fold = Capture(fill_ops, "fold_batched",
+                         lambda lo0, *a: lo0.numel(), copy=True)
     for name in ("4clique_at", "lollipop_at"):
         text = SERVE_QUERIES[name]
         s0, l0 = dict(stats), launched()
@@ -1866,6 +2063,7 @@ def serving_path(src, dst, g, torch):
             f"sequential answers and {SERVE_HOST_BINDINGS} to the host "
             f"({[shown(r) for r in seq[:SERVE_HOST_BINDINGS]]}); counters "
             f"{json.dumps(d, sort_keys=True)}")
+    small_fold.restore()
     check(which["4clique_at"], "4clique_at did not batch on tenant small")
     check(not which["lollipop_at"], "lollipop_at batched")
     evictions = srv.counters.get("store.evictions", 0)
@@ -1890,6 +2088,7 @@ def serving_path(src, dst, g, torch):
     launches = launched()
     for c in captures.values():
         c.restore()
+    captures["frontier_fold_batched.small"] = small_fold
     summary = srv.dispatch_summary()
     log(f"[serve] batched: {json.dumps(which, sort_keys=True)}; launches "
         f"{json.dumps(launches, sort_keys=True)}")
@@ -1898,17 +2097,150 @@ def serving_path(src, dst, g, torch):
     return launches, captures
 
 
+def kernel_timer(torch):
+    """``time_stats(fn, reps, hold=True)``: the median, min and max over
+    ``reps`` launches of ``fn`` (a 256 MB buffer zeroed before each to
+    flush the L2; with ``hold``, the card held busy while the host queues
+    it, see ``HOLD_CYCLES``), in ms, by CUDA events."""
+    import numpy as np
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def time_stats(fn, reps, hold=True):
+        fn()
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for s, e in ev:
+            if hold:
+                torch.cuda._sleep(HOLD_CYCLES)
+            flush.zero_()
+            s.record()
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in ev]
+        return float(np.median(ms)), min(ms), max(ms)
+
+    return time_stats
+
+
+def fold_profile(cases, common, fill_ops, plain, time_stats, torch):
+    """Each batched fold case's block-cycles by phase, summed over the
+    fold's blocks, through a build of ``frontier_fill.cu`` with
+    ``-DFOLD_PROFILE`` (which the wrappers launch from then on): the
+    merge path's share ends, the tile starts, the rows' staging and the
+    tile's check, the probes, and the fold with the row writes.  The
+    blocks stay resident from start to end, so a share of block-cycles is
+    a share of the kernel's time; the marks add a few per cent."""
+    import ctypes
+    phases = ("share ends", "tile starts", "row staging and check",
+              "probes", "fold and writes")
+    lib = common.load_variant(fill_ops.NAME, ("FOLD_PROFILE",))
+    sums = (ctypes.c_ulonglong * 8)()
+    for label, case in cases:
+        same = fold_equal(fill_ops.fold_batched(*case), plain(*case),
+                          case[6], torch)
+        check(same, f"frontier_fold_batched, {label}: the profiling build "
+                    "differs from the plain version")
+        torch.cuda.synchronize()
+        check(lib.frontier_fold_profile_reset() == 0, "profile reset")
+        fill_ops.fold_batched(*case)
+        torch.cuda.synchronize()
+        check(lib.frontier_fold_profile_read(sums) == 0, "profile read")
+        total = max(1, sum(sums[:len(phases)]))
+        ms = time_stats(lambda: fill_ops.fold_batched(*case), 5)[0]
+        log(f"[profile] frontier_fold_batched, {label}: equal to the plain "
+            f"version; {ms:.4f} ms with the marks (median of 5); "
+            f"block-cycles {total:.4e}: " + ", ".join(
+                f"{name} {sums[k] / total * 100:.1f}%"
+                for k, name in enumerate(phases)))
+
+
+def kernel_split(fn, torch, reps=3):
+    """The device time a launch of each kernel that ``fn`` runs, by
+    torch.profiler over ``reps`` calls: ``name us, ...``."""
+    activity = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[activity]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if us:
+            name = e.key.split("(")[0].replace("void ", "")
+            parts.append(f"{name} {us / max(e.count, 1):.2f} us")
+    return ", ".join(parts) or "no device time"
+
+
+def fold_cases_only(opts, torch):
+    """``--fold-cases``: the build, phase 8 on the full-size graph, then
+    the batched fold's cases (a)-(i) on its captured calls
+    (:func:`fold_batched_cases`, ``opts.repeat`` times; then each case's
+    device time by kernel, :func:`kernel_split`) and the single fold's
+    (a)-(f) on phase 8's largest single-query call (:func:`fold_cases`);
+    with ``--fold-profile``, :func:`fold_profile` last.  Prints each run's median ms by case letter as the last line."""
+    from repro_torch.data.graphs import edge_list, powerlaw_graph
+    from repro_torch.kernels import common
+    from repro_torch.kernels.frontier_fill import ops as fill_ops
+    from repro_torch.kernels.frontier_fill.ref import (fold_batched_ref,
+                                                       fold_ref)
+    log(f"card: {card_line()}; package {opts.src}")
+    t0 = time.perf_counter()
+    for name, report in common.build().items():
+        for line in ptxas_lines(report):
+            if "fold" in line:
+                log(f"[build] {name}: {line}")
+    g = powerlaw_graph(*FULL_GRAPH, seed=0)
+    src, dst = edge_list(g)
+    single = Capture(fill_ops, "fold", lambda lo0, *a: int(lo0.shape[0]),
+                     copy=True)
+    _launches, captures = serving_path(src, dst, g, torch)
+    single.restore()
+    args = captures["frontier_fold_batched"].args
+    small = captures["frontier_fold_batched.small"].args
+    log(f"[cases] the captured call's probe segments: "
+        f"{segment_stats(args, torch)}")
+    time_stats = kernel_timer(torch)
+    runs = [fold_batched_cases(args, fill_ops.fold_batched,
+                               fold_batched_ref, time_stats, torch, small)
+            for _ in range(opts.repeat)]
+    for label, case in fold_batched_case_args(args, torch, small):
+        log(f"[split] frontier_fold_batched, {label}: "
+            f"{kernel_split(lambda: fill_ops.fold_batched(*case), torch)}")
+    single_ms = fold_cases(single.args, fill_ops, fold_ref, time_stats,
+                           torch)
+    if opts.fold_profile:
+        fold_profile(fold_batched_case_args(args, torch, small), common,
+                     fill_ops, fold_batched_ref, time_stats, torch)
+    log(f"[cases] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"src": opts.src, "batched_ms": runs,
+                      "single_ms": single_ms}), flush=True)
+
+
 def main():
-    if not (SRC / "repro_torch").is_dir():
-        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
-             "the root of a checkout", 2)
-    sys.path.insert(0, str(SRC))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--fold-cases", action="store_true")
+    ap.add_argument("--fold-profile", action="store_true")
+    ap.add_argument("--repeat", type=int, default=1)
+    ap.add_argument("--src", default=str(SRC))
+    opts = ap.parse_args()
+    src_dir = Path(opts.src).resolve()
+    if not (src_dir / "repro_torch").is_dir():
+        fail(f"no repro_torch under {src_dir}: run {Path(__file__).name} "
+             "from the root of a checkout", 2)
+    sys.path.insert(0, str(src_dir))
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card",
              3)
+    if opts.fold_cases or opts.fold_profile:
+        fold_cases_only(opts, torch)
+        return
 
     from repro_torch.core import workload as W
     from repro_torch.core.engine import Engine
@@ -1949,15 +2281,21 @@ def main():
     for name, rep in reports.items():
         for line in ptxas_lines(rep):
             log(f"[build] {name}: {line}")
-    fill_lines = [line for line in ptxas_lines(reports.get("frontier_fill",
-                                                           ""))
+    ff_lines = ptxas_lines(reports.get("frontier_fill", ""))
+    fill_lines = [line for line in ff_lines
                   if line.startswith(("frontier_fill_kernel",
                                       "frontier_fill_batched_kernel"))]
-    check("frontier_fill" not in reports or len(fill_lines) == 2,
-          "no ptxas line of frontier_fill_kernel or of its batched form")
-    for line in fill_lines:
+    # the batched fold: 3 semiring types x 4 probe counts, and its staging
+    # kernel's 4 probe counts
+    fold_lines = [line for line in ff_lines if line.startswith((
+        "void fold::fold_batched_kernel<", "void fold::fold_stage_kernel<"))]
+    check("frontier_fill" not in reports or (len(fill_lines) == 2
+                                             and len(fold_lines) == 16),
+          f"{len(fill_lines)} ptxas lines of the fill and its batched form, "
+          f"{len(fold_lines)} of the batched fold's instances (want 2, 16)")
+    for line in fill_lines + fold_lines:
         check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
-              "loads" in line, f"the fill spills: {line}")
+              "loads" in line, f"a stack frame or a spill: {line}")
 
     # ------------------------------------------------------ 2. main path
     captures = {
@@ -2034,7 +2372,7 @@ def main():
           f"bitset_intersect: {launches['bitset_intersect']} launches for "
           f"{captures['bitset_intersect'].calls} both-dense counts, not one "
           "a call")
-    if "--profile" in sys.argv[1:]:
+    if opts.profile:
         profile_query(eng, W.TRIANGLE_COUNT, BagResultCache, torch)
     del eng
 
@@ -2067,7 +2405,7 @@ def main():
     check(mat_launches["materialize"] == captures["materialize"].calls,
           f"materialize: {mat_launches['materialize']} launches for "
           f"{captures['materialize'].calls} calls with pairs, not one a call")
-    if "--profile" in sys.argv[1:]:
+    if opts.profile:
         # after the capture: the profiled query's launches are not the path's
         profile_query(mat_eng, MAT_QUERIES[0][1], BagResultCache, torch)
     del mat_eng
@@ -2102,26 +2440,7 @@ def main():
         path_launches.update(counts)
 
     # ---------------------------------- 9. kernels against plain versions
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-
-    def time_stats(fn, reps, hold=True):
-        """Median, min and max over ``reps`` launches of ``fn`` (L2
-        flushed before each; with ``hold``, the card held busy while the
-        host queues it, see ``HOLD_CYCLES``), in ms."""
-        fn()
-        torch.cuda.synchronize()
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-        for s, e in ev:
-            if hold:
-                torch.cuda._sleep(HOLD_CYCLES)
-            flush.zero_()
-            s.record()
-            fn()
-            e.record()
-        torch.cuda.synchronize()
-        ms = [s.elapsed_time(e) for s, e in ev]
-        return float(np.median(ms)), min(ms), max(ms)
+    time_stats = kernel_timer(torch)
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -2182,6 +2501,12 @@ def main():
             plain = lambda: fold_batched_ref(*args)               # noqa: E731
             shape, moved, ops, singles = fold_batched_work(args, fill_ops,
                                                            torch)
+            shape += f" ({segment_stats(args, torch)})"
+            fold_batched_cases(args, fill_ops.fold_batched,
+                               fold_batched_ref, time_stats, torch,
+                               captures["frontier_fold_batched.small"].args)
+            anchored_fold_check(fill_ops, fold_batched_ref, time_stats,
+                                torch)
         elif name == "bitset_intersect":
             kern = lambda: bitset_ops.bitset_pair_count(*args)    # noqa: E731
             plain = lambda: bitset_pair_count_ref(*args)          # noqa: E731

@@ -50,10 +50,13 @@
 // code as it is (a batch may hold more queries than gridDim.y's 65,535).
 //
 // The same source holds frontier_fold, the device terminal fold (its own
-// header below), which folds a batch as one merge path over all its rows.
+// header below), which folds a batch as one merge path over all its rows,
+// with the probe segments its anchored queries share staged first.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define FF_MAX_PROBES 8
 
@@ -303,6 +306,31 @@ __global__ void __launch_bounds__(256) frontier_fill_batched_kernel(
 //      indexed only by unrolled constants, so no thread copies them.  The
 //      semiring op is a uniform runtime argument (as fast as a template
 //      parameter on the H100).
+//   6. The batched fold (Rows = Batch, fold_batched_kernel) folds B
+//      queries' rows as one merge path.  An anchored query (a prepared
+//      query re-bound, the serving path) probes one segment from every
+//      row: triangle_at's T(0,z) is the anchor's adjacency for each of its
+//      y rows.  Searched in device memory, that cost a candidate about 13
+//      dependent L2 reads.  So a first kernel (fold_stage_kernel: up to
+//      kStageBlocks blocks taking the queries in turn, and one that scans
+//      the totals into base) stages the segments of the first row with a
+//      candidate of each query with kStageMin candidates, as a bitmap
+//      over the value range (running counts too where the probe is
+//      annotated), in device memory; the fold starts while it ends
+//      (programmatic dependent launch) and waits for it.  Per tile, a
+//      row's query is one 32-bit division while the row ends are staged,
+//      beside each row's seed base (in s_supp's space until the fold) and
+//      a check of each row with a candidate against its query's staged
+//      bounds; a tile that passes reads a lane's kRounds seed values at
+//      once and answers each probe by one read of the bitmap, which stays
+//      in L1 while the SM's blocks fold that query.  A tile whose rows
+//      differ, or span two queries, or whose segment is past the budget,
+//      outside its level or not strictly ascending, keeps step 3.  Staging
+//      in shared memory instead (a block's bitmap of each segment it
+//      meets) lost on the H100: the reservation left 3 blocks an SM and
+//      less L1, and the tiles that search in device memory slowed by a
+//      quarter.  Steps 1, 2 and 4 and the carry kernel are the same, so
+//      the reduction order and bits are too.
 // A warp for each row is simpler and spends less on live candidates, but
 // pays a warp for each dead row of the capacity and puts a hub row on one
 // warp: on the H100 it lost the main path's call by 8%, and a row of a
@@ -398,6 +426,8 @@ struct OneQuery {
   }
 };
 
+// A batch's rows number fewer than 2^31 (the entry checks it), so a row's
+// query is a 32-bit division.
 struct Batch {
   using Coord = int64_t;
   const int32_t* offs;    // [batch, cap_in]: each query's exclusive scan
@@ -414,16 +444,296 @@ struct Batch {
   __device__ __forceinline__ int64_t total() const {
     return __ldg(base + batch);
   }
-  __device__ __forceinline__ int64_t start(int64_t x) const {
-    return __ldg(base + x / cap_in) + __ldg(offs + x);
+  __device__ __forceinline__ uint32_t query(int64_t x) const {
+    return (uint32_t)x / (uint32_t)cap_in;
+  }
+  // row x's end, given its query b and that query's base
+  __device__ __forceinline__ int64_t end_in(uint32_t b, int64_t qbase,
+                                            int64_t x) const {
+    const int32_t xq = (int32_t)((uint32_t)x - b * (uint32_t)cap_in);
+    return qbase + (xq + 1 < cap_in ? __ldg(offs + x + 1)
+                                    : __ldg(totals + b));
   }
   __device__ __forceinline__ int64_t end(int64_t, int64_t x) const {
-    const int64_t b = x / cap_in;
-    return __ldg(base + b) + (x + 1 - b * cap_in < cap_in
-                                  ? __ldg(offs + x + 1)
-                                  : __ldg(totals + b));
+    const uint32_t b = query(x);
+    return end_in(b, __ldg(base + b), x);
   }
 };
+
+// The batched fold stages, for each query, the probe segment that its
+// first row with a candidate probes (an anchored query's rows all probe
+// it): a bitmap over the segment's value range [first, first + bits), and
+// where the probe is annotated (its position needed) a running count of
+// the set bits before each word.  A segment of strictly ascending values
+// (a trie level's) holds v at position lo + (its values below v), so bit
+// v - first answers the search.  Each (query, probe) has kDesc int32 of
+// descriptor: whether the lookup answers the search, the bounds, the
+// value of bit 0, the bits, and the offsets of the bitmap and of the
+// counts (-1: none) in the query's words.
+enum { kDescOk, kDescLo, kDescHi, kDescFirst, kDescBits, kDescWords,
+       kDescCounts, kDesc = 8 };
+
+// Rounds of 32 candidates a warp takes in a tile (kTile / kWarps / 32).
+constexpr int kRounds = kTile / kThreads;
+static_assert(kRounds * kThreads == kTile, "a warp's share of a tile");
+
+// The staging kernel's block: a query's segments are staged on the fold's
+// critical path, so a block takes many threads.
+constexpr int kStageThreads = 1024;
+// Its blocks besides the scan's, at most: one resident on each of the
+// H100's 132 SMs.  (Its launch bounds ask for one block an SM: without
+// them ptxas held it to 32 registers for two, and spilled.)
+constexpr int kStageBlocks = 132;
+// Candidates a query needs to be staged: four of the fold's tiles.  A
+// staged query costs its block a few microseconds, which the fold waits
+// out; a query with fewer candidates saves less than that (70,000
+// queries of 4 rows on the H100: staging each one with a tile's worth of
+// candidates made the call 40% slower).
+constexpr int kStageMin = 4 * kTile;
+// The totals the staging kernel's scan takes, kScanPer a thread: a larger
+// batch's totals come scanned by the caller (on the H100 one block's scan
+// of 70,000 held the fold up longer than PyTorch's scan and the staging).
+constexpr int kScanPer = 4;
+constexpr int64_t kScanBatch = kScanPer * kStageThreads;
+
+// Counts of the set bits before each of the words w[0, n), into cnt: a
+// block-wide exclusive scan (s_part: an int a warp of scratch).
+__device__ __forceinline__ void stage_counts(const uint32_t* w, uint32_t* cnt,
+                                             int n, int32_t* s_part) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (n + kStageThreads - 1) / kStageThreads;
+  const int i0 = min(tid * per, n), i1 = min(i0 + per, n);
+  int32_t sum = 0;
+  for (int i = i0; i < i1; ++i) sum += __popc(w[i]);
+  int32_t inc = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int32_t t = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += t;
+  }
+  if (lane == 31) s_part[warp] = inc;
+  __syncthreads();
+  int32_t run = inc - sum;
+  for (int k = 0; k < warp; ++k) run += s_part[k];
+  for (int i = i0; i < i1; ++i) {
+    cnt[i] = (uint32_t)run;
+    run += __popc(w[i]);
+  }
+  __syncthreads();
+}
+
+// base[0, batch]: the exclusive scan of the queries' totals, in int64, by
+// one block (batch <= kScanBatch), kScanPer totals a thread.
+__device__ __forceinline__ void scan_totals(const int32_t* __restrict__ totals,
+                                            int64_t* __restrict__ base,
+                                            int64_t batch, int64_t* s_part) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int64_t v[kScanPer], sum = 0;
+#pragma unroll
+  for (int k = 0; k < kScanPer; ++k) {
+    const int64_t i = kScanPer * tid + k;
+    v[k] = i < batch ? __ldg(totals + i) : 0;
+    sum += v[k];
+  }
+  int64_t inc = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int64_t t = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += t;
+  }
+  if (lane == 31) s_part[warp] = inc;
+  __syncthreads();
+  int64_t run = inc - sum;
+  for (int w = 0; w < warp; ++w) run += s_part[w];
+  if (tid == 0) base[0] = 0;
+#pragma unroll
+  for (int k = 0; k < kScanPer; ++k) {
+    const int64_t i = kScanPer * tid + k;
+    run += v[k];
+    if (i < batch) base[i + 1] = run;
+  }
+}
+
+// The batched fold's first kernel.  Its last block scans the totals into
+// base (a batch of up to kScanBatch queries); with probes, each other
+// block j takes queries j, j + G, j + 2G, ...
+// (G of them), kStageThreads at a time: a query with fewer than kStageMin
+// candidates is marked not staged at once, and the block stages each of
+// the others in turn: its first row with a candidate, each probe's segment
+// there planned and staged in shared memory (qwords words: every
+// segment's bitmap and counts, packed in probe order, or none of them),
+// copied out to the query's words, and the descriptors written.  A
+// segment that is empty needs no words; one past its level, past qwords
+// or not strictly ascending is not staged.
+template <int NP>
+__global__ void __launch_bounds__(kStageThreads, 1) fold_stage_kernel(
+    const int32_t* __restrict__ offs, const int32_t* __restrict__ totals,
+    int32_t cap_in, const __grid_constant__ FillProbes probes,
+    const __grid_constant__ FoldAnns anns, int64_t* __restrict__ base,
+    int64_t batch, int32_t* __restrict__ desc, uint32_t* __restrict__ words,
+    int32_t qwords) {
+  constexpr int NPA = NP > 0 ? NP : 1;
+  __shared__ int32_t s_first, s_used, s_broken, s_todo_n;
+  __shared__ int32_t s_todo[kStageThreads];
+  __shared__ int32_t s_plan[NPA][kDesc];
+  __shared__ int32_t s_part[kStageThreads / 32];
+  __shared__ int64_t s_part64[kStageThreads / 32];
+  extern __shared__ uint32_t s_words[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int np = NP < FF_MAX_PROBES ? NP : probes.count;
+  // the fold may start now: it waits for this grid before it reads these
+  asm volatile("griddepcontrol.launch_dependents;");
+  const bool scans = batch <= kScanBatch;  // else base came scanned
+  if (scans && blockIdx.x == gridDim.x - 1) {
+    scan_totals(totals, base, batch, s_part64);
+    return;
+  }
+  const int64_t step = gridDim.x - scans;
+  for (int64_t c0 = blockIdx.x; c0 < batch; c0 += step * kStageThreads) {
+    __syncthreads();  // the last round's reads of s_todo are done
+    if (tid == 0) s_todo_n = 0;
+    __syncthreads();
+    const int64_t bt = c0 + tid * step;
+    if (bt < batch) {
+      if (__ldg(totals + bt) < kStageMin) {
+        for (int q = 0; q < np; ++q)
+          desc[(bt * np + q) * kDesc + kDescOk] = 0;
+      } else {
+        s_todo[atomicAdd(&s_todo_n, 1)] = tid;
+      }
+    }
+    __syncthreads();
+    const int todo = s_todo_n;
+    for (int i = 0; i < todo; ++i) {
+      // (rows number fewer than 2^31: the entry checks it)
+      const int32_t b = (int32_t)(c0 + s_todo[i] * step), row0 = b * cap_in;
+      int32_t* const qdesc = desc + (int64_t)b * np * kDesc;
+      __syncthreads();  // the last query's reads of the shared plan are done
+      // the first row with a candidate: the least xq whose end on the
+      // merge path passes 0 (the ends ascend from 0), 32 probes a step
+      if (warp == 0) {
+        int32_t lo = 0, hi = cap_in;
+        while (lo < hi) {
+          const int32_t p =
+              lo + (int32_t)((int64_t)(hi - lo) * (lane + 1) / 33);
+          const int32_t e = p + 1 < cap_in ? __ldg(offs + row0 + p + 1)
+                                           : __ldg(totals + b);
+          const unsigned m = __ballot_sync(kFull, e > 0);
+          const int k = m ? __ffs(m) - 1 : 32;  // first probe past 0
+          const int32_t at = __shfl_sync(kFull, p, k & 31);
+          const int32_t before = __shfl_sync(kFull, p, (k + 31) & 31);
+          hi = k < 32 ? at : hi;
+          lo = k > 0 ? before + 1 : lo;
+        }
+        if (lane == 0) {
+          s_first = lo;
+          s_broken = 0;
+        }
+      }
+      __syncthreads();
+      const int32_t first = s_first;
+      if (first == cap_in) {  // no candidate: nothing of it is read
+        if (tid < np) qdesc[tid * kDesc + kDescOk] = 0;
+        continue;
+      }
+      if (warp == 0) {  // the plan, a lane a probe
+        int32_t d[kDesc] = {1, 0, 0, 0, 0, 0, -1, 0};
+        int32_t need = 0, nw = 0;
+        bool fit = true, pos = false;
+        if (lane < np) {
+          const FillProbe pr = probes.p[lane];
+          pos = anns.p[lane + 1] != nullptr;
+          d[kDescLo] = __ldg(pr.lo + row0 + first);
+          d[kDescHi] = __ldg(pr.hi + row0 + first);
+          if (pr.n > 0 && d[kDescLo] < d[kDescHi]) {
+            if (d[kDescLo] < 0 || d[kDescHi] > pr.n) {
+              fit = false;  // past the level: the search clips
+            } else {
+              d[kDescFirst] = __ldg(pr.vals + d[kDescLo]);
+              const int64_t span = (int64_t)__ldg(pr.vals + d[kDescHi] - 1) -
+                                   d[kDescFirst] + 1;
+              if (span < 1 || span > 32 * (int64_t)qwords) {
+                fit = false;
+              } else {
+                d[kDescBits] = (int32_t)span;
+                nw = (int32_t)((span + 31) >> 5);
+                need = pos ? 2 * nw : nw;
+              }
+            }
+          }
+        }
+        int32_t at = need;  // inclusive scan of the words
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int32_t t = __shfl_up_sync(kFull, at, o);
+          if (lane >= o) at += t;
+        }
+        const int32_t used = __shfl_sync(kFull, at, 31);
+        const bool all = __all_sync(kFull, fit) && used <= qwords;
+        d[kDescOk] = all;
+        d[kDescWords] = at - need;
+        d[kDescCounts] = pos ? at - need + nw : -1;
+        if (lane < np) {
+#pragma unroll
+          for (int k = 0; k < kDesc; ++k) s_plan[lane][k] = d[k];
+        }
+        if (lane == 0) s_used = all ? used : 0;
+      }
+      __syncthreads();
+      const int32_t used = s_used;
+      for (int j = tid; j < used; j += kStageThreads) s_words[j] = 0;
+      __syncthreads();
+      // the bits, 4 values a thread in flight
+#pragma unroll
+      for (int q = 0; q < NPA; ++q) {
+        if (q >= np || !used || !s_plan[q][kDescBits]) continue;
+        const int32_t lo = s_plan[q][kDescLo], hi = s_plan[q][kDescHi];
+        const uint32_t first_v = (uint32_t)s_plan[q][kDescFirst];
+        const uint32_t bits = (uint32_t)s_plan[q][kDescBits];
+        uint32_t* const w = s_words + s_plan[q][kDescWords];
+        const int32_t* vals = probes.p[q].vals;
+        bool broken = false;  // not strictly ascending
+        for (int32_t i0 = lo + tid; i0 < hi; i0 += 4 * kStageThreads) {
+          int32_t v[4], before[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int32_t j = i0 + k * kStageThreads;
+            v[k] = j < hi ? __ldg(vals + j) : 0;
+            before[k] = j < hi && j > lo ? __ldg(vals + j - 1) : INT32_MIN;
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (i0 + k * kStageThreads >= hi) continue;
+            const uint32_t off = (uint32_t)v[k] - first_v;
+            if (off < bits && before[k] < v[k])
+              atomicOr(w + (off >> 5), 1u << (off & 31));
+            else
+              broken = true;
+          }
+        }
+        if (broken) atomicOr(&s_broken, 1 << q);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < NPA; ++q) {
+        if (q < np && used && s_plan[q][kDescCounts] >= 0 &&
+            s_plan[q][kDescBits])
+          stage_counts(s_words + s_plan[q][kDescWords],
+                       s_words + s_plan[q][kDescCounts],
+                       (s_plan[q][kDescBits] + 31) >> 5, s_part);
+      }
+      uint32_t* const qw = words + (int64_t)b * qwords;
+      for (int j = tid; j < used; j += kStageThreads) qw[j] = s_words[j];
+      if (tid < np) {
+#pragma unroll
+        for (int k = 0; k < kDesc; ++k)
+          qdesc[tid * kDesc + k] =
+              k == kDescOk ? s_plan[tid][k] && !((s_broken >> tid) & 1)
+                           : s_plan[tid][k];
+      }
+    }
+  }
+}
 
 // The merge-path coordinate on diagonal d: the least x in [lo, hi] with
 // end(x) + x >= d (the row ends consumed; d - x candidates).  The whole
@@ -470,24 +780,53 @@ __device__ __forceinline__ I imax(I a, I b) {
   return a < b ? b : a;
 }
 
+// A build with -DFOLD_PROFILE sums the fold's block-cycles by phase over
+// its blocks (thread 0's clock64() at the block-wide barriers that end
+// each phase) into g_fold_phase: share ends, tile starts, a batch's row
+// staging and check, the probes, the fold and its writes.  Only a
+// profiling build has it; the kernels of every other build are as if
+// these marks were not there.
+#ifdef FOLD_PROFILE
+__device__ unsigned long long g_fold_phase[8];
+#define FOLD_PHASE_START             \
+  long long t_mark = clock64();      \
+  unsigned long long t_sum[8] = {};
+#define FOLD_PHASE(k)                  \
+  {                                    \
+    const long long t_now = clock64(); \
+    t_sum[k] += t_now - t_mark;        \
+    t_mark = t_now;                    \
+  }
+#define FOLD_PHASE_END \
+  for (int k = 0; k < 8; ++k) atomicAdd(&g_fold_phase[k], t_sum[k]);
+#else
+#define FOLD_PHASE_START
+#define FOLD_PHASE(k)
+#define FOLD_PHASE_END
+#endif
+
 __device__ __forceinline__ int32_t level_at(const int32_t* __restrict__ vals,
                                             int32_t n, int32_t p) {
   return __ldg(vals + clamp_i32(p, 0, n - 1));
 }
 
 // A batch (Rows = Batch) passes batch_base and batch, and its queries'
-// cap_in: the launch folds batch * cap_in rows.
+// cap_in: the launch folds batch * cap_in rows.  It also passes the staged
+// segments of fold_stage_kernel: their descriptors ([batch, np, kDesc])
+// and words (qwords a query).
 template <typename T, int NP, typename Rows>
-__global__ void __launch_bounds__(kThreads) fold_kernel(
+__device__ __forceinline__ void fold_tiles(
     const int32_t* __restrict__ lo0, const int32_t* __restrict__ offs,
     const int32_t* __restrict__ total_c, int32_t q_cap_in,
-    const int32_t* __restrict__ seed, int32_t n0,
-    const __grid_constant__ FillProbes probes,
-    const __grid_constant__ FoldAnns anns, int op, T zero, T one,
-    T* __restrict__ folded, int32_t* __restrict__ supp,
-    int32_t* __restrict__ carry_row, T* __restrict__ carry_val,
-    int32_t* __restrict__ carry_hits,
-    const int64_t* __restrict__ batch_base, int64_t batch) {
+    const int32_t* __restrict__ seed, int32_t n0, const FillProbes& probes,
+    const FoldAnns& anns, int op, T zero, T one, T* __restrict__ folded,
+    int32_t* __restrict__ supp, int32_t* __restrict__ carry_row,
+    T* __restrict__ carry_val, int32_t* __restrict__ carry_hits,
+    const int64_t* __restrict__ batch_base, int64_t batch,
+    const int32_t* __restrict__ desc, const uint32_t* __restrict__ words,
+    int32_t qwords) {
+  constexpr bool kBatch = std::is_same<Rows, Batch>::value;
+  constexpr int NPA = NP > 0 ? NP : 1;
   __shared__ int32_t s_end[kTile];   // the tile's row ends, less its ys
   __shared__ T s_contrib[kTile];     // per candidate: its contribution
   __shared__ uint8_t s_keep[kTile];  // and whether every probe holds it
@@ -499,10 +838,18 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
   __shared__ T s_wval[kWarps];
   __shared__ T s_cval;               // the open row's carry between tiles
   __shared__ int32_t s_chits;
+  // a batch: each row's seed base (its seed start less its first
+  // candidate's tile coordinate), until the fold needs s_supp; the tile's
+  // staged segments (lo, value of bit 0, bits, bitmap and counts offsets)
+  int32_t* const s_base = s_supp;
+  __shared__ int32_t s_look[NPA][5];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int np = NP < FF_MAX_PROBES ? NP : probes.count;
+  FOLD_PHASE_START
   using C = typename Rows::Coord;
+  // a batch's base and staged segments come from fold_stage_kernel
+  if constexpr (kBatch) asm volatile("griddepcontrol.wait;" ::: "memory");
   const Rows rows_at(offs, total_c, q_cap_in, batch_base, batch);
   const int32_t cap_in = rows_at.rows();
   const C total = rows_at.total();
@@ -525,6 +872,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
     s_chits = 0;
   }
   __syncthreads();
+  FOLD_PHASE(0)
   const int64_t x0 = s_path[0], x1 = s_path[1];
   const int64_t tiles = (d1 - d0 + kTile - 1) / kTile;
   const T* ann0 = static_cast<const T*>(anns.p[0]);
@@ -538,6 +886,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
                                      imax(x0, d - total), imin(x1, d));
     }
     __syncthreads();
+    FOLD_PHASE(1)
     for (int t = 0; t < nb; ++t) {
       const int64_t ds = d0 + (t0 + t) * kTile;
       const int64_t de = imin(ds + kTile, d1);
@@ -545,9 +894,77 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
       const C ys = (C)(ds - xs), ye = (C)(de - xe);
       const int rows = xe - xs, ncand = (int)(ye - ys);
       const int tile_items = rows + ncand;
-      for (int r = tid; r < rows; r += kThreads)
-        s_end[r] = (int32_t)(rows_at.end(total, xs + r) - ys);
-      __syncthreads();
+      // A batch: each row's query by a 32-bit division, for its end and,
+      // where the tile has candidates, its seed base (row xe too, whose
+      // candidates may start here).  The tile takes the staged lookups of
+      // its first row's query bq if every row with a candidate in it is
+      // of bq and probes bq's staged segments.
+      bool staged = false;
+      uint32_t bq = 0;
+      if constexpr (kBatch) {
+        bq = rows_at.query(xs);
+        int32_t klo[NPA] = {}, khi[NPA] = {};
+        bool bad = false;
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          if (q < np && ncand > 0) {
+            const int32_t* d = desc + ((int64_t)bq * np + q) * kDesc;
+            bad = bad || !__ldg(d + kDescOk);
+            klo[q] = __ldg(d + kDescLo);
+            khi[q] = __ldg(d + kDescHi);
+          }
+        }
+        if (tid < np && ncand > 0) {
+          const int32_t* d = desc + ((int64_t)bq * np + tid) * kDesc;
+          s_look[tid][0] = __ldg(d + kDescLo);
+          s_look[tid][1] = __ldg(d + kDescFirst);
+          s_look[tid][2] = __ldg(d + kDescBits);
+          s_look[tid][3] = __ldg(d + kDescWords);
+          s_look[tid][4] = __ldg(d + kDescCounts);
+        }
+        // the ends: a thread's rows' loads in flight together
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) {
+          const int r = tid + k * kThreads;
+          if (r < rows) {
+            const int64_t x = xs + r;
+            const uint32_t b = rows_at.query(x);
+            s_end[r] =
+                (int32_t)rows_at.end_in(b, __ldg(batch_base + b) - ys, x);
+          }
+        }
+        // the seed bases, and the check, where the tile has candidates;
+        // a thread reads back only the ends it wrote
+        for (int r = tid; r <= rows && ncand > 0; r += kThreads) {
+          const int64_t x = xs + r;
+          if (x >= cap_in) break;
+          const uint32_t b = rows_at.query(x);
+          const int64_t qbase = __ldg(batch_base + b) - ys;
+          const int32_t o = __ldg(offs + x);
+          s_base[r] = (int32_t)((uint32_t)__ldg(lo0 + x) -
+                                (uint32_t)(qbase + o));
+          // where row x's candidates start (its query's first row: at
+          // the query's base)
+          const int64_t from =
+              qbase + ((uint32_t)x != b * (uint32_t)q_cap_in ? o : 0);
+          // (the bounds read beside the row's other values, not after)
+          bool differs = b != bq;
+#pragma unroll
+          for (int q = 0; q < NP; ++q)
+            if (q < np)
+              differs |= (__ldg(probes.p[q].lo + x) != klo[q]) |
+                         (__ldg(probes.p[q].hi + x) != khi[q]);
+          if (differs && (r < rows ? (int64_t)s_end[r] : (int64_t)ncand) >
+                             imax(from, (int64_t)0))
+            bad = true;
+        }
+        staged = !__syncthreads_or(bad);
+        FOLD_PHASE(2)
+      } else {
+        for (int r = tid; r < rows; r += kThreads)
+          s_end[r] = (int32_t)(rows_at.end(total, xs + r) - ys);
+        __syncthreads();
+      }
 
       // this thread's items [dt, dt_end) start at (xr0, yc0) in the tile
       const int dt = imin(tid * kItems, tile_items);
@@ -561,11 +978,74 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
 
       // 3. the probes: each warp takes a contiguous part of the tile's
       // candidates, 32 consecutive ones a round (their seed values read
-      // coalesced, and a row's lanes searching the same segment).  A row's
-      // positions ascend with its candidates, so a lane's search in each
-      // probe segment starts where the warp's previous round left its row
-      {
-        constexpr int NPA = NP > 0 ? NP : 1;
+      // coalesced).  A batch's staged tile (or one with no probe) takes
+      // its candidates' seed values a lane's rounds at once and answers
+      // each probe from its query's bitmap.
+      if constexpr (kBatch) {
+        if (staged) {
+          // a lane's rounds: its candidates' rows from the staged row
+          // ends, then every seed value in flight at once
+          const int per_warp = ((ncand + kWarps - 1) / kWarps + 31) & ~31;
+          const int c_begin = imin(warp * per_warp, ncand);
+          const int c_end = imin(c_begin + per_warp, ncand);
+          const uint32_t* qw = words + (int64_t)bq * qwords;
+          int r = rows;  // the least r with r == rows or s_end[r] > c
+          int32_t p0[kRounds], v[kRounds];
+#pragma unroll
+          for (int u = 0; u < kRounds; ++u) {
+            const int c = c_begin + lane + 32 * u;
+            p0[u] = 0;
+            if (c < c_end) {
+              if (u == 0 || (r < rows && s_end[r] <= c)) {
+                int lo_r = u == 0 ? 0 : r + 1, hi_r = rows;
+                while (lo_r < hi_r) {
+                  const int m = (lo_r + hi_r) >> 1;
+                  if (s_end[m] > c) hi_r = m; else lo_r = m + 1;
+                }
+                r = lo_r;
+              }
+              p0[u] = (int32_t)((uint32_t)s_base[r] + (uint32_t)c);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kRounds; ++u)
+            v[u] = c_begin + lane + 32 * u < c_end
+                       ? __ldg(seed + clamp_i32(p0[u], 0,
+                                                n0 > 0 ? n0 - 1 : 0))
+                       : 0;
+#pragma unroll
+          for (int u = 0; u < kRounds; ++u) {
+            const int c = c_begin + lane + 32 * u;
+            if (c >= c_end) continue;
+            T contrib = one;
+            if (ann0 != nullptr)
+              contrib = sr_mul(op, contrib,
+                               ann0[clamp_i32(p0[u], 0, anns.n[0] - 1)]);
+            bool keep = true;
+#pragma unroll
+            for (int q = 0; q < NP; ++q) {
+              if (q >= np) continue;
+              const uint32_t off = (uint32_t)v[u] - (uint32_t)s_look[q][1];
+              uint32_t w = 0;
+              if (off < (uint32_t)s_look[q][2])
+                w = __ldg(qw + s_look[q][3] + (off >> 5));
+              keep = keep && ((w >> (off & 31)) & 1u);
+              const T* an = static_cast<const T*>(anns.p[q + 1]);
+              if (an != nullptr && keep) {  // then counts were staged
+                const int32_t pos =
+                    s_look[q][0] +
+                    (int32_t)__ldg(qw + s_look[q][4] + (off >> 5)) +
+                    __popc(w & ((1u << (off & 31)) - 1u));
+                contrib = sr_mul(op, contrib,
+                                 an[clamp_i32(pos, 0, anns.n[q + 1] - 1)]);
+              }
+            }
+            s_contrib[c] = contrib;
+            s_keep[c] = keep;
+          }
+        }
+      }
+      if (!staged) {
         const int per_warp = ((ncand + kWarps - 1) / kWarps + 31) & ~31;
         const int c_begin = imin(warp * per_warp, ncand);
         const int c_end = imin(c_begin + per_warp, ncand);
@@ -591,7 +1071,10 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
           }
           if (act && r != my_row) {
             my_row = r;
-            my_base = __ldg(lo0 + xs + r) - rows_at.start(xs + r);
+            if constexpr (kBatch)
+              my_base = (C)s_base[r] - ys;
+            else
+              my_base = __ldg(lo0 + xs + r) - rows_at.start(xs + r);
 #pragma unroll
             for (int q = 0; q < NP; ++q) {
               if (q < np) {
@@ -629,7 +1112,9 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
             if (!more) break;
 #pragma unroll
             for (int q = 0; q < NP; ++q) {
-              if (q < np) {
+              // a settled search reads nothing, so an empty level is
+              // never read
+              if (q < np && len[q] > 1) {
                 const int32_t half = len[q] >> 1;
                 if (level_at(probes.p[q].vals, probes.p[q].n,
                              pos[q] + half) < v)
@@ -663,6 +1148,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
         }
       }
       __syncthreads();
+      FOLD_PHASE(3)
 
       // 4. fold this thread's items in order
       int xr = xr0, yc = yc0;
@@ -751,14 +1237,54 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(
         supp[xs + r] = s_supp[r];
       }
       __syncthreads();
+      FOLD_PHASE(4)
     }
   }
   if (tid == 0) {
     carry_row[blockIdx.x] = (int32_t)x1;
     carry_val[blockIdx.x] = s_cval;
     carry_hits[blockIdx.x] = s_chits;
+    FOLD_PHASE_END
   }
 }
+
+#define FOLD_PARAMS                                                          \
+  const int32_t *__restrict__ lo0, const int32_t *__restrict__ offs,        \
+      const int32_t *__restrict__ total_c, int32_t q_cap_in,                \
+      const int32_t *__restrict__ seed, int32_t n0,                         \
+      const __grid_constant__ FillProbes probes,                            \
+      const __grid_constant__ FoldAnns anns, int op, T zero, T one,         \
+      T *__restrict__ folded, int32_t *__restrict__ supp,                   \
+      int32_t *__restrict__ carry_row, T *__restrict__ carry_val,           \
+      int32_t *__restrict__ carry_hits,                                     \
+      const int64_t *__restrict__ batch_base, int64_t batch,                \
+      const int32_t *__restrict__ desc, const uint32_t *__restrict__ words, \
+      int32_t qwords
+#define FOLD_ARGS                                                         \
+  lo0, offs, total_c, q_cap_in, seed, n0, probes, anns, op, zero, one,    \
+      folded, supp, carry_row, carry_val, carry_hits, batch_base, batch, \
+      desc, words, qwords
+
+// One query's fold (Rows = OneQuery).
+template <typename T, int NP, typename Rows>
+__global__ void __launch_bounds__(kThreads) fold_kernel(FOLD_PARAMS) {
+  fold_tiles<T, NP, Rows>(FOLD_ARGS);
+}
+
+// A batch's: registers for as many blocks an SM as leave no instance a
+// stack frame or a spill on the H100 (5 without a probe, 4 with 1 or 2,
+// 2 for the generic count).
+template <int NP>
+constexpr int batch_blocks() {
+  return NP == 0 ? 5 : (NP < FF_MAX_PROBES ? 4 : 2);
+}
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads, batch_blocks<NP>())
+    fold_batched_kernel(FOLD_PARAMS) {
+  fold_tiles<T, NP, Batch>(FOLD_ARGS);
+}
+#undef FOLD_PARAMS
+#undef FOLD_ARGS
 
 // A warp for each block b >= 1: if b completed row r = x0(b), the row gets
 // the carries of the blocks before b for r (a hub's run spans many), the
@@ -796,25 +1322,64 @@ __global__ void fold_carry_kernel(const int32_t* __restrict__ carry_row,
   }
 }
 
-// batch_base null: one query of cap_in rows; else a batch of `batch`.
+// batch_base null: one query of cap_in rows; else a batch of `batch`,
+// whose probe segments fold_stage_kernel stages first, stage_bytes a query
+// (none without a probe).  The scratch holds the carries, then for a batch
+// the descriptors and the staged words.
 template <typename T, int NP>
 static int launch(const int32_t* lo0, const int32_t* offs,
-                  const int32_t* total_c, const int64_t* batch_base,
+                  const int32_t* total_c, int64_t* batch_base,
                   int64_t batch, int32_t cap_in, const int32_t* seed,
                   int32_t n0, const FillProbes* probes, const FoldAnns* anns,
                   int op, T zero, T one, T* folded, int32_t* supp,
-                  void* scratch, cudaStream_t stream) {
+                  void* scratch, int32_t stage_bytes, cudaStream_t stream) {
   int32_t* carry_row = static_cast<int32_t*>(scratch);
   T* carry_val = reinterpret_cast<T*>(carry_row + kBlocks);
   int32_t* carry_hits = carry_row + 2 * kBlocks;
-  if (batch_base == nullptr)
+  if (batch_base == nullptr) {
     fold_kernel<T, NP, OneQuery><<<kBlocks, kThreads, 0, stream>>>(
         lo0, offs, total_c, cap_in, seed, n0, *probes, *anns, op, zero, one,
-        folded, supp, carry_row, carry_val, carry_hits, nullptr, 1);
-  else
-    fold_kernel<T, NP, Batch><<<kBlocks, kThreads, 0, stream>>>(
-        lo0, offs, total_c, cap_in, seed, n0, *probes, *anns, op, zero, one,
-        folded, supp, carry_row, carry_val, carry_hits, batch_base, batch);
+        folded, supp, carry_row, carry_val, carry_hits, nullptr, 1, nullptr,
+        nullptr, 0);
+  } else {
+    int32_t* desc = carry_row + 3 * kBlocks;
+    uint32_t* words = reinterpret_cast<uint32_t*>(
+        desc + batch * probes->count * kDesc);
+    const int32_t qwords = NP > 0 ? stage_bytes / 4 : 0;
+    // up to kStageBlocks blocks to stage (with probes), and one to scan
+    // (up to kScanBatch queries)
+    const unsigned int blocks =
+        (NP > 0 ? (unsigned int)(batch < kStageBlocks ? batch : kStageBlocks)
+                : 0) +
+        (batch <= kScanBatch ? 1 : 0);
+    if (blocks > 0) {
+      cudaError_t err = cudaFuncSetAttribute(
+          fold_stage_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          qwords * 4);
+      if (err != cudaSuccess) return (int)err;
+      fold_stage_kernel<NP><<<blocks, kStageThreads, qwords * 4, stream>>>(
+          offs, total_c, cap_in, *probes, *anns, batch_base, batch, desc,
+          words, qwords);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    // launched to start while the staging kernel ends
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kBlocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t err = cudaLaunchKernelEx(
+        &cfg, fold_batched_kernel<T, NP>, lo0, offs, total_c, cap_in, seed,
+        n0, *probes, *anns, op, zero, one, folded, supp, carry_row,
+        carry_val, carry_hits, batch_base, batch, (const int32_t*)desc,
+        (const uint32_t*)words, qwords);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;  // 8 warps, one for each block b >= 1
@@ -833,32 +1398,33 @@ static int launch(const int32_t* lo0, const int32_t* offs,
 // and supp [batch, cap_in]; total_c [batch]).
 template <typename T>
 static int fold_entry(const int32_t* lo0, const int32_t* offs,
-                      const int32_t* total_c, const int64_t* batch_base,
+                      const int32_t* total_c, int64_t* batch_base,
                       int64_t batch, int32_t cap_in, const int32_t* seed,
                       int32_t n0, const FillProbes* probes,
                       const FoldAnns* anns, int op, T zero, T one,
                       T* folded, int32_t* supp, void* scratch,
-                      cudaStream_t stream) {
-  if (batch_base != nullptr && (batch < 1 || batch * cap_in > INT32_MAX))
+                      int32_t stage_bytes, cudaStream_t stream) {
+  if (batch_base != nullptr && (batch < 1 || batch * cap_in > INT32_MAX ||
+                                 stage_bytes < 0 || stage_bytes % 16))
     return (int)cudaErrorInvalidValue;
   switch (probes->count) {
     case 0:
       return launch<T, 0>(lo0, offs, total_c, batch_base, batch, cap_in,
                           seed, n0, probes, anns, op, zero, one, folded, supp,
-                          scratch, stream);
+                          scratch, stage_bytes, stream);
     case 1:
       return launch<T, 1>(lo0, offs, total_c, batch_base, batch, cap_in,
                           seed, n0, probes, anns, op, zero, one, folded, supp,
-                          scratch, stream);
+                          scratch, stage_bytes, stream);
     case 2:
       return launch<T, 2>(lo0, offs, total_c, batch_base, batch, cap_in,
                           seed, n0, probes, anns, op, zero, one, folded, supp,
-                          scratch, stream);
+                          scratch, stage_bytes, stream);
     default:
       return launch<T, FF_MAX_PROBES>(lo0, offs, total_c, batch_base, batch,
                                       cap_in, seed, n0, probes, anns, op,
                                       zero, one, folded, supp, scratch,
-                                      stream);
+                                      stage_bytes, stream);
   }
 }
 
@@ -874,59 +1440,82 @@ extern "C" int64_t frontier_fold_scratch_bytes() {
   return 3 * 4 * (int64_t)fold::kBlocks;
 }
 
+// Bytes of the scratch a batch of `batch` queries with n_probes probes
+// takes: the carries, each (query, probe)'s descriptor, and stage_bytes of
+// staged segments a query.
+extern "C" int64_t frontier_fold_batched_scratch_bytes(int64_t batch,
+                                                       int32_t n_probes,
+                                                       int32_t stage_bytes) {
+  return frontier_fold_scratch_bytes() +
+         batch * (4 * fold::kDesc * (int64_t)n_probes + stage_bytes);
+}
+
+// The most queries whose totals the batched fold scans itself.
+extern "C" int64_t frontier_fold_batched_scan_max() {
+  return fold::kScanBatch;
+}
+
 // lo0, offs: [cap_in] (each row's seed segment start and exclusive-scan
 // candidate offset); total_c: the candidate total, on the device; seed:
 // [n0]; scratch: frontier_fold_scratch_bytes(); folded, supp: [cap_in],
-// every row written.  A batch of `batch` queries passes batch_base (its
-// [batch + 1] int64 scan of the totals, see fold::Batch) and every per-row
-// array as [batch, cap_in], total_c as [batch]; one query passes null.  op
+// every row written.  A batch of `batch` queries passes batch_base ([batch
+// + 1] int64, the exclusive scan of the totals, see fold::Batch: written
+// here for up to frontier_fold_batched_scan_max() queries, passed scanned
+// for more) and every per-row
+// array as [batch, cap_in], total_c as [batch], and stage_bytes of staged
+// segments a query (a multiple of 16; scratch:
+// frontier_fold_batched_scratch_bytes); one query passes null and 0.  op
 // selects the float semiring (0 sum, 1 min_plus, 2 max_min).  Returns the
 // first launch error, or 0.
 extern "C" int frontier_fold_i32(const int32_t* lo0, const int32_t* offs,
                                  const int32_t* total_c,
-                                 const int64_t* batch_base, int64_t batch,
+                                 int64_t* batch_base, int64_t batch,
                                  int32_t cap_in, const int32_t* seed,
                                  int32_t n0, const FillProbes* probes,
                                  const FoldAnns* anns, int32_t op,
                                  int32_t zero, int32_t one, int32_t* folded,
                                  int32_t* supp, void* scratch,
-                                 cudaStream_t stream) {
+                                 int32_t stage_bytes, cudaStream_t stream) {
   if (fold::bad_args(cap_in, probes) || op != 0)
     return (int)cudaErrorInvalidValue;
   return fold::fold_entry<int32_t>(lo0, offs, total_c, batch_base, batch,
                                    cap_in, seed, n0, probes, anns, op, zero,
-                                   one, folded, supp, scratch, stream);
+                                   one, folded, supp, scratch, stage_bytes,
+                                   stream);
 }
 
 extern "C" int frontier_fold_f32(const int32_t* lo0, const int32_t* offs,
                                  const int32_t* total_c,
-                                 const int64_t* batch_base, int64_t batch,
+                                 int64_t* batch_base, int64_t batch,
                                  int32_t cap_in, const int32_t* seed,
                                  int32_t n0, const FillProbes* probes,
                                  const FoldAnns* anns, int32_t op, float zero,
                                  float one, float* folded, int32_t* supp,
-                                 void* scratch, cudaStream_t stream) {
+                                 void* scratch, int32_t stage_bytes,
+                                 cudaStream_t stream) {
   if (fold::bad_args(cap_in, probes) || op < 0 || op > 2)
     return (int)cudaErrorInvalidValue;
   return fold::fold_entry<float>(lo0, offs, total_c, batch_base, batch,
                                  cap_in, seed, n0, probes, anns, op, zero,
-                                 one, folded, supp, scratch, stream);
+                                 one, folded, supp, scratch, stage_bytes,
+                                 stream);
 }
 
 extern "C" int frontier_fold_u8(const int32_t* lo0, const int32_t* offs,
                                 const int32_t* total_c,
-                                const int64_t* batch_base, int64_t batch,
+                                int64_t* batch_base, int64_t batch,
                                 int32_t cap_in, const int32_t* seed,
                                 int32_t n0, const FillProbes* probes,
                                 const FoldAnns* anns, int32_t op,
                                 uint8_t zero, uint8_t one, uint8_t* folded,
                                 int32_t* supp, void* scratch,
-                                cudaStream_t stream) {
+                                int32_t stage_bytes, cudaStream_t stream) {
   if (fold::bad_args(cap_in, probes) || op != 3)
     return (int)cudaErrorInvalidValue;
   return fold::fold_entry<uint8_t>(lo0, offs, total_c, batch_base, batch,
                                    cap_in, seed, n0, probes, anns, op, zero,
-                                   one, folded, supp, scratch, stream);
+                                   one, folded, supp, scratch, stage_bytes,
+                                   stream);
 }
 
 extern "C" int frontier_fill(const int32_t* total_c, const int32_t* offs,
@@ -970,3 +1559,16 @@ extern "C" int frontier_fill_batched(const int32_t* total_c,
       vals_o, row_o, p0_o, keep_o, pos_o);
   return (int)cudaGetLastError();
 }
+
+#ifdef FOLD_PROFILE
+// A profiling build's block-cycles of the fold by phase (g_fold_phase):
+// read into out[8], and set to zero.
+extern "C" int frontier_fold_profile_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, fold::g_fold_phase,
+                                   sizeof(fold::g_fold_phase));
+}
+extern "C" int frontier_fold_profile_reset() {
+  const unsigned long long zero[8] = {};
+  return (int)cudaMemcpyToSymbol(fold::g_fold_phase, zero, sizeof(zero));
+}
+#endif

@@ -75,9 +75,16 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, defines: Sequence[str] = ()) -> Path:
     digest = hashlib.sha1((_CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return _BUILD / f"lib{name}-{digest[:12]}.so"
+    return _BUILD / "-".join([f"lib{name}", *defines, f"{digest[:12]}.so"])
+
+
+def _nvcc(name: str, out: Path, defines: Sequence[str] = ()) -> list:
+    return [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-Xptxas=-v", "-shared", "-Xcompiler",
+            "-fPIC", *(f"-D{d}" for d in defines), "-o", str(out),
+            str(_CSRC / f"{name}.cu")]
 
 
 def build(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, str]:
@@ -93,11 +100,8 @@ def build(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-Xptxas=-v", "-shared",
-               "-Xcompiler", "-fPIC", "-o", str(tmp),
-               str(_CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(_nvcc(name, tmp),
+                                        stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
     reports, failed = {}, []
@@ -122,6 +126,26 @@ def library(name: str) -> ctypes.CDLL:
             build()
             lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
         return lib
+
+
+def load_variant(name: str, defines: Sequence[str]) -> ctypes.CDLL:
+    """Build kernel source ``name`` with the preprocessor ``defines`` (a
+    profiling build, say ``("FOLD_PROFILE",)``) and make it the library
+    that the source's wrappers launch from then on; returns it.  For
+    measuring: nothing of the port calls it."""
+    out = _lib_path(name, defines)
+    if not out.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        done = subprocess.run(_nvcc(name, tmp, defines),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed\n{name}:\n{done.stdout}")
+        os.replace(tmp, out)
+    with _LOCK:
+        lib = _LIBS[name] = ctypes.CDLL(str(out))
+    return lib
 
 
 def check_launch(err: int, name: str) -> None:

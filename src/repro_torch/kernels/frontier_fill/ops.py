@@ -46,6 +46,14 @@ FOLD_NAME = "frontier_fold"
 BATCHED_NAME = "frontier_fill_batched"
 FOLD_BATCHED_NAME = "frontier_fold_batched"
 MAX_PROBES = 8   # FF_MAX_PROBES in the CUDA source
+# Bytes a query of the batched fold may stage its probe segments in: a
+# bitmap over each segment's value range (32 values a word, and a running
+# count a word where the probe is annotated), read through L1.  A segment
+# whose range needs more keeps the search in device memory.  A batch
+# stages _STAGE_TOTAL bytes at most, so a large batch's queries get fewer
+# each.
+_STAGE_BYTES = 64 << 10
+_STAGE_TOTAL = 64 << 20
 # semiring name -> (kernel entry suffix, ctypes scalar, op code)
 _FOLD_OPS = {"count": ("i32", ctypes.c_int32, 0),
              "sum_f32": ("f32", ctypes.c_float, 0),
@@ -184,10 +192,14 @@ def _fold_lib(suffix: str, scalar):
         fn.argtypes = [p, p, p, p, ctypes.c_int64, ctypes.c_int32, p,
                        ctypes.c_int32, ctypes.POINTER(_Probes),
                        ctypes.POINTER(_FoldAnns), ctypes.c_int32, scalar,
-                       scalar, p, p, p, p]
+                       scalar, p, p, p, ctypes.c_int32, p]
         fn.restype = ctypes.c_int
         lib.frontier_fold_scratch_bytes.restype = ctypes.c_int64
-    return fn, lib.frontier_fold_scratch_bytes
+        lib.frontier_fold_batched_scratch_bytes.argtypes = [
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32]
+        lib.frontier_fold_batched_scratch_bytes.restype = ctypes.c_int64
+        lib.frontier_fold_batched_scan_max.restype = ctypes.c_int64
+    return fn, lib
 
 
 def fold(lo0: torch.Tensor, offs: torch.Tensor, total: torch.Tensor,
@@ -231,15 +243,25 @@ def _check_fold(lo0, offs, total, seed, probes, leaf_anns, sr) -> None:
 
 
 def _launch_fold(lo0, offs, total, base, seed, probes, leaf_anns, sr,
-                 name: str):
+                 name: str, stage_bytes: int = 0):
     """Launch the fold on the card over ``lo0``'s rows (one query's, or a
-    batch's with its ``base`` scan of the totals) and count it."""
+    batch's with its ``base`` for the scan of the totals and
+    ``stage_bytes`` a query for its staged probe segments) and count it."""
     dev = lo0.device
     suffix, scalar, op = _FOLD_OPS[sr.name]
-    fn, scratch_bytes = _fold_lib(suffix, scalar)
+    fn, lib = _fold_lib(suffix, scalar)
     folded = torch.empty(lo0.shape, dtype=sr.dtype, device=dev)
     supp = torch.empty(lo0.shape, dtype=torch.int32, device=dev)
-    scratch = torch.empty(scratch_bytes(), dtype=torch.uint8, device=dev)
+    nbytes = (lib.frontier_fold_scratch_bytes() if base is None else
+              lib.frontier_fold_batched_scratch_bytes(
+                  int(lo0.shape[0]), len(probes), stage_bytes))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if base is not None and int(lo0.shape[0]) > \
+            lib.frontier_fold_batched_scan_max():
+        # the kernel scans the totals of a batch of up to so many queries
+        # (one block's work); a larger batch's are scanned here
+        base[:1].zero_()
+        torch.cumsum(total, 0, out=base[1:])
     anns = _FoldAnns()
     for k, la in enumerate(leaf_anns):
         if la is not None:
@@ -251,7 +273,8 @@ def _launch_fold(lo0, offs, total, base, seed, probes, leaf_anns, sr,
              int(lo0.shape[-1]), seed.data_ptr(), int(seed.shape[0]),
              ctypes.byref(_probes_desc(probes)), ctypes.byref(anns), op,
              scalar(sr.zero), scalar(sr.one), folded.data_ptr(),
-             supp.data_ptr(), scratch.data_ptr(), common.stream_ptr(dev))
+             supp.data_ptr(), scratch.data_ptr(), int(stage_bytes),
+             common.stream_ptr(dev))
     common.check_launch(err, name)
     return folded, supp
 
@@ -300,13 +323,19 @@ def _lib_batched():
 
 def fold_batched(lo0: torch.Tensor, offs: torch.Tensor, total: torch.Tensor,
                  seed: torch.Tensor, probes: Sequence[Tuple],
-                 leaf_anns: Sequence, sr):
+                 leaf_anns: Sequence, sr, *,
+                 _stage_bytes: int = _STAGE_BYTES):
     """``fold`` of B queries over the same levels, in ONE launch:
     ``lo0``, ``offs`` and the probe bounds ``[B, cap_in]``, ``total``
     ``[B]``; returns ``(folded, support)``, each ``[B, cap_in]``.  The
     kernel folds the batch as one merge path over its ``B * cap_in``
     rows; the queries' totals are scanned in int64 on the card (their
-    sum may pass 2^31), so the call reads nothing on the host."""
+    sum may pass 2^31), so the call reads nothing on the host.  The probe
+    segments of each query's first row with a candidate are staged first,
+    in ``_STAGE_BYTES`` a query (``_STAGE_TOTAL`` a batch at most), and a
+    tile whose rows all probe them looks them up there: the result is the
+    same.  ``_stage_bytes``, for the tests, sets another budget a query
+    (0: nothing staged)."""
     if offs.dim() != 2:
         raise ValueError("fold_batched takes [B, cap_in] rows")
     _check_fold(lo0, offs, total, seed, probes, leaf_anns, sr)
@@ -315,8 +344,9 @@ def fold_batched(lo0: torch.Tensor, offs: torch.Tensor, total: torch.Tensor,
                                 sr)
     if lo0.numel() > (1 << 31) - 1:
         raise ValueError(f"a batch of {lo0.numel()} rows passes int32")
-    base = torch.zeros(int(lo0.shape[0]) + 1, dtype=torch.int64,
+    # the int64 scan of the totals (see _launch_fold)
+    base = torch.empty(int(lo0.shape[0]) + 1, dtype=torch.int64,
                        device=lo0.device)
-    torch.cumsum(total, 0, dtype=torch.int64, out=base[1:])
+    stage = min(_stage_bytes, _STAGE_TOTAL // int(lo0.shape[0])) // 16 * 16
     return _launch_fold(lo0, offs, total, base, seed, probes, leaf_anns, sr,
-                        FOLD_BATCHED_NAME)
+                        FOLD_BATCHED_NAME, stage)

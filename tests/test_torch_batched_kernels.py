@@ -1,14 +1,17 @@
 """The batched forms of the frontier fill and fold on the CPU: the
 batched plain versions equal the single-query plain versions stacked
 over the batch, on seeded random frontiers that include an empty query
-and a query at full capacity; the wrappers take them on a CPU tensor,
-check shapes, and a batch of one equals the single-query entry."""
+and a query at full capacity, and on anchored batches (every row of a
+query probing one shared segment, as the serving path's are); the
+wrappers take them on a CPU tensor, check shapes, and a batch of one
+equals the single-query entry."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import semiring as S
 from repro_torch.kernels.frontier_fill import ops as fill_ops
+from repro_torch.kernels.frontier_fill.batches import anchored_batch
 from repro_torch.kernels.frontier_fill.ref import (fill_batched_ref,
                                                    fill_ref,
                                                    fold_batched_ref, fold_ref)
@@ -178,3 +181,70 @@ def test_single_entries_hand_a_batch_on():
                                  S.COUNT)
     for x, y in zip(via, want):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def live_segments(total, offs, probes, b):
+    """Probe k's distinct (lo, hi) among query b's rows with a
+    candidate."""
+    ends = torch.cat([offs[b, 1:], total[b:b + 1]])
+    live = ends > offs[b]
+    return [set(zip(lo[b][live].tolist(), hi[b][live].tolist()))
+            for _v, lo, hi in probes]
+
+
+def test_anchored_batch_shapes():
+    """The builder's batches: query 0 without candidate, query 1 at full
+    capacity, the empty query's probe segment empty, each anchored query
+    one segment a probe (the varied one several), segments of very
+    different lengths, and dead rows with bounds of their own."""
+    total, offs, lo0, seed_v, probes = anchored_batch(
+        4, batch=8, cap_in=48, n_probes=2, varied=(5,))
+    assert int(total[0]) == 0
+    ends = torch.cat([offs[:, 1:], total[:, None]], 1)
+    assert bool((ends[1] > offs[1]).all())              # every row live
+    lengths = set()
+    for b in range(1, 8):
+        segs = live_segments(total, offs, probes, b)
+        if b == 5:
+            assert len(segs[0]) > 1
+            continue
+        assert all(len(s) <= 1 for s in segs)
+        for s in segs:
+            lengths |= {hi - lo for lo, hi in s}
+    assert 0 in lengths and max(lengths) >= 100 * max(1, min(lengths - {0}))
+    b = next(b for b in range(3, 8) if bool((ends[b] == offs[b]).any())
+             and bool((ends[b] > offs[b]).any()))
+    dead = ends[b] == offs[b]
+    assert set(zip(probes[0][1][b][dead].tolist(),
+                   probes[0][2][b][dead].tolist())) - \
+        live_segments(total, offs, probes, b)[0]
+
+
+@pytest.mark.parametrize("annotate", [False, True],
+                         ids=["no-annotation", "annotated"])
+@pytest.mark.parametrize("srname", list(SEMIRINGS))
+def test_fold_batched_ref_on_anchored_batches(srname, annotate):
+    """Anchored batches (two probes, one query's segments varied) through
+    the batched plain version and the wrapper on the CPU equal the
+    single-query plain version query by query, with and without leaf
+    annotations on the seed and every probe."""
+    sr = SEMIRINGS[srname]
+    total, offs, lo0, seed_v, probes = anchored_batch(
+        11, batch=7, cap_in=40, n_probes=2, varied=(4,))
+    r = np.random.default_rng(7)
+    anns = [None] * 3
+    if annotate:
+        anns = [torch.as_tensor(r.integers(1, 5, len(seed_v))).to(sr.dtype)
+                for _ in range(3)]
+    folded, supp = fold_batched_ref(lo0, offs, total, seed_v, probes, anns,
+                                    sr)
+    for b in range(offs.shape[0]):
+        f1, s1 = fold_ref(lo0[b], offs[b], total[b], seed_v,
+                          per_query(probes, b), anns, sr)
+        torch.testing.assert_close(folded[b], f1, rtol=0, atol=0)
+        torch.testing.assert_close(supp[b], s1, rtol=0, atol=0)
+    assert int(supp[0].sum()) == 0 and int(supp[2].sum()) == 0  # empty probe
+    assert int(supp[1].sum()) > 0
+    via = fill_ops.fold_batched(lo0, offs, total, seed_v, probes, anns, sr)
+    torch.testing.assert_close(via[0], folded, rtol=0, atol=0)
+    torch.testing.assert_close(via[1], supp, rtol=0, atol=0)

@@ -931,6 +931,208 @@ def test_fold_batched_total_past_int32(dev):
         assert int(folded[b, 0]) == expect and int(supp[b, 0]) == seg
 
 
+def _anchored(dev, seed, **kw):
+    from repro_torch.kernels.frontier_fill.batches import anchored_batch
+    return anchored_batch(seed, device=dev, **kw)
+
+
+def _all_annotated(dev, sr, inputs, seed=37):
+    """Fold arguments with a leaf annotation on the seed and on every
+    probe, so each probe's position is needed."""
+    total, offs, lo0, seed_v, probes = inputs
+    r = np.random.default_rng(seed)
+    anns = []
+    for v in (seed_v,) + tuple(p[0] for p in probes):
+        a = np.floor(r.random(int(v.shape[0])) * 3).astype(np.float32)
+        if sr.name == "sum_f32":
+            a = a + r.random(a.shape).astype(np.float32)
+        if sr.name == "boolean":
+            a = a > 0.5
+        anns.append(torch.as_tensor(a, device=dev).to(sr.dtype))
+    return (lo0, offs, total, seed_v, probes, tuple(anns), sr)
+
+
+# anchored batches large enough that a query spans several of the fold's
+# tiles (1,792 items): the staged path engages inside a query
+BIG = dict(batch=10, cap_in=1500, vertices=20_000, universe=200_000,
+           hub=3000)
+
+
+def _same_at_every_budget(args, budgets=(0, 64, 4096)):
+    """The batched fold at other staging budgets (0: every probe searched
+    in device memory) gives the default budget's bits."""
+    want = fill_ops.fold_batched(*args)
+    for b in budgets:
+        got = fill_ops.fold_batched(*args, _stage_bytes=b)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+def test_fold_batched_staged_and_global_paths_in_one_launch(dev):
+    """Anchored queries (their tiles staged) beside a query whose probe
+    segments differ from row to row and tiles that span two queries
+    (searched in device memory), in one launch; equal to the plain
+    version, the single-query kernel and the all-global launch."""
+    from repro_torch.core import semiring as S
+
+    inputs = _anchored(dev, 61, n_probes=1, varied=(4,), **BIG)
+    args = (inputs[2], inputs[1], inputs[0], inputs[3], inputs[4],
+            (None, None), S.COUNT)
+    _check_fold_batched(args)
+    _same_at_every_budget(args)
+
+
+def test_fold_batched_tiles_and_blocks_span_queries(dev):
+    """300 small anchored queries: most tiles and blocks of the merge
+    path hold rows of two or more queries, each with its own segment, and
+    19 of them have enough candidates to be staged."""
+    from repro_torch.core import semiring as S
+
+    inputs = _anchored(dev, 67, batch=300, cap_in=160, n_probes=2,
+                       empty=(2, 150))
+    args = _all_annotated(dev, S.COUNT, inputs)
+    _check_fold_batched(args, singles=False)
+    _same_at_every_budget(args)
+
+
+def test_fold_batched_segment_past_the_staging(dev):
+    """A hub segment whose value range (2,000,000 values) passes the
+    shared memory a block may take keeps the search in device memory,
+    beside queries whose segments stage."""
+    from repro_torch.core import semiring as S
+
+    inputs = _anchored(dev, 71, n_probes=1, **dict(BIG, universe=2_000_000))
+    hub_range = int(inputs[3][inputs[4][0][2][1, 0] - 1]
+                    - inputs[3][inputs[4][0][1][1, 0]]) + 1
+    assert hub_range > 8 * fill_ops._STAGE_BYTES
+    args = (inputs[2], inputs[1], inputs[0], inputs[3], inputs[4],
+            (None, None), S.COUNT)
+    _check_fold_batched(args)
+    _same_at_every_budget(args, (0, 160 << 10))
+
+
+def test_fold_batched_empty_segments(dev):
+    """Queries whose shared segment is empty (an isolated anchor), and a
+    probe over an empty level: no candidate is kept there."""
+    from repro_torch.core import semiring as S
+
+    total, offs, lo0, seed, probes = _anchored(dev, 73, n_probes=1,
+                                               empty=(2, 5), **BIG)
+    none = torch.empty(0, dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(lo0)
+    for pr in (probes, probes + ((none, zero, zero),)):
+        args = (lo0, offs, total, seed, pr, (None,) * (len(pr) + 1),
+                S.COUNT)
+        folded, supp = _check_fold_batched(args)
+        assert int(supp[2].sum()) == int(supp[5].sum()) == 0
+    assert int(supp.sum()) == 0                  # the empty level
+
+
+def test_fold_batched_staging_rounds(dev):
+    """300,000 anchored queries of 2 rows, one in 997 with 8,000
+    candidates (staged) among small ones (not staged): more queries
+    than the staging kernel's blocks take in one round, and more than it
+    scans (the wrapper scans their totals).  The probe level has gaps, so
+    a staged bitmap holds misses; with and without an annotated probe,
+    whose position is needed, and with no probe."""
+    from repro_torch.core import semiring as S
+
+    batch, m, n = 300_000, 250_000, 200_000
+    r = np.random.default_rng(103)
+    seed = np.arange(m)
+    level = np.sort(r.choice(m, n, replace=False))
+    big = np.arange(batch) % 997 == 5
+    cnt = np.where(big[:, None], 4000, r.integers(0, 6, (batch, 2)))
+    lo0 = r.integers(0, m - 4000, (batch, 2))
+    # each query's segment: from the level's first value past its first
+    # row's 200th candidate, 600 values for a big query
+    seg = np.where(big, 600, r.integers(0, 300, batch))
+    lo = np.minimum(np.searchsorted(level, lo0[:, 0] + 200), n - 600)
+    bounds = [t32(np.repeat(x[:, None], 2, 1), dev) for x in (lo, lo + seg)]
+    inputs = (t32(cnt.sum(1), dev), t32(np.cumsum(cnt, 1) - cnt, dev),
+              t32(lo0, dev), t32(seed, dev),
+              ((t32(level, dev), bounds[0], bounds[1]),))
+    total, offs, lo0_t, seed_t, probes = inputs
+    for args in ((lo0_t, offs, total, seed_t, probes, (None, None),
+                  S.COUNT), _all_annotated(dev, S.COUNT, inputs)):
+        folded, supp = _check_fold_batched(args, singles=False)
+        assert int(supp[torch.as_tensor(big, device=dev)].sum()) \
+            > 400 * int(big.sum())
+        _same_at_every_budget(args, (0,))
+    # no probe: nothing to stage, and the totals scanned by the wrapper
+    _check_fold_batched((lo0_t, offs, total, seed_t, (), (None,), S.COUNT),
+                        singles=False)
+
+
+def test_fold_batched_row_dependent_probes(dev):
+    """Every query's probe segments differ from row to row (as
+    4clique_at's X(y,a)), one probe and two."""
+    from repro_torch.core import semiring as S
+
+    for n_probes in (1, 2):
+        inputs = _anchored(dev, 79 + n_probes, n_probes=n_probes,
+                           varied=range(10), **BIG)
+        _check_fold_batched(_all_annotated(dev, S.COUNT, inputs))
+
+
+@pytest.mark.parametrize("srname", FOLD_SEMIRINGS)
+def test_fold_batched_annotated_probes(dev, srname):
+    """Anchored queries with a leaf annotation on every probe: each staged
+    probe's position comes from the running counts."""
+    from repro_torch.core import semiring as S
+
+    sr = S.BY_NAME[srname]
+    inputs = _anchored(dev, 83, n_probes=2, **BIG)
+    args = _all_annotated(dev, sr, inputs)
+    _check_fold_batched(args)
+    _same_at_every_budget(args)
+
+
+def test_fold_batched_max_probes_anchored(dev):
+    """MAX_PROBES anchored probes over one level, every one annotated:
+    the smaller queries' segments stage together, the hub's pass the
+    budget."""
+    from repro_torch.core import semiring as S
+
+    inputs = _anchored(dev, 89, n_probes=fill_ops.MAX_PROBES, **BIG)
+    args = _all_annotated(dev, S.COUNT, inputs)
+    _check_fold_batched(args)
+    _same_at_every_budget(args, (0, 160 << 10))
+
+
+def test_fold_batched_staged_float_sum_is_deterministic(dev):
+    """A float sum over staged anchored queries: three launches give the
+    same bits, within rtol 1e-5 of the plain version's sums in float64."""
+    from repro_torch.core import semiring as S
+
+    inputs = _anchored(dev, 97, n_probes=1, **BIG)
+    args = _all_annotated(dev, S.SUM_F32, inputs)
+    first = _check_fold_batched(args)
+    for _ in range(2):
+        again = fill_ops.fold_batched(*args)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+
+
+def test_fold_batched_staged_makes_no_host_sync(dev):
+    """An anchored batch, and 9,000 queries (more than the staging kernel
+    scans: the wrapper scans their totals on the card)."""
+    from repro_torch.core import semiring as S
+
+    inputs = _anchored(dev, 101, n_probes=2, varied=(3,), **BIG)
+    many = _batch(dev, 107, 9000, 4, 5000, 6, 1)
+    for args in (_all_annotated(dev, S.COUNT, inputs),
+                 _fold_batch_args(dev, S.COUNT, many, False)):
+        want = fill_ops.fold_batched(*args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fill_ops.fold_batched(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_batched_forms_make_no_host_sync(dev):
     from repro_torch.core import semiring as S
 

@@ -189,6 +189,32 @@ def test_batch_overflow_retry(qname, query):
     assert delta(te.backend.stats, before).get("pipeline.retries", 0) == 0
 
 
+@pytest.mark.parametrize("qname,query",
+                         [PARAM_QUERIES[0], PARAM_QUERIES[2]],
+                         ids=[QIDS[0], QIDS[2]])
+def test_batch_over_anchors_of_different_degree(qname, query):
+    """One batch anchored at vertices from the hub (degree 138) down to
+    degree 2 and an isolated vertex, so each query's shared probe segment
+    (the anchor's adjacency) ranges from empty to the hub's: answers and
+    the whole dispatch summary equal the reference's, and each answer the
+    sequential one."""
+    g = powerlaw_graph(300, 8, 2.0, seed=1)
+    src = np.repeat(np.arange(g.n), np.diff(g.offsets))
+    deg = np.diff(g.offsets)
+    order = np.argsort(-deg, kind="stable")
+    bindings = [int(order[i]) for i in (0, 3, 20, 80, 200)]
+    bindings.append(int(order[-1]))
+    assert deg[bindings[0]] >= 10 * max(1, deg[bindings[-2]])
+    te, je = engines(src, g.neighbors)
+    tpq, jpq = te.prepare(query), je.prepare(query)
+    got, want = tpq.run_batch(bindings), jpq.run_batch(bindings)
+    assert te.dispatch_summary() == je.dispatch_summary()
+    assert te.dispatch_summary()["pipeline.batched_launches"] >= 1
+    for gq, wq, b in zip(got, want, bindings):
+        assert_same_result(gq, wq)
+        assert_same_result(gq, tpq.run(b))
+
+
 def test_rebind_zero_recompile():
     te, _ = engines(*small_graph())
     pq = te.prepare(PARAM_QUERIES[0][1])

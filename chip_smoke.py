@@ -103,6 +103,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    vertices, evicts the full tenant (``torch.cuda.memory_allocated``
    printed around it), whose re-query equals its first answer, and
    ``check_store`` holds the memory model against the live bytes;
+8b. preprocessing path, with every launch counter set to 0 just before
+   and read just after, each kernel's launches equal to its calls with
+   work and no kernel off the path launched: ``graph_stats`` of the
+   full-size graph, then for each of the seven orderings of Appendix
+   C.2.1 ``order_nodes``, ``apply_ordering`` and ``prune_symmetric``
+   (each timed), the pruned graph in ``Engine(backend="device")``, its
+   TRIANGLE_COUNT cold and warm equal to phase 2's divided by 6, with the
+   largest pruned degree, the layout store's ``stats()`` and the warm
+   run's counters; on the degree-ordered, pruned graph TRIANGLE_COUNT in
+   each layout mode ("set", "uint", "off"), the three equal and each
+   through its route (``bitset_intersect`` in "set", ``uint_intersect``
+   and no bitset route in "uint", no pair route in "off", whose fold runs
+   in ``frontier_fold`` with no per-extension host sync), then
+   FOUR_CLIQUE in "set"; TRIANGLE_COUNT and FOUR_CLIQUE in each mode on
+   the degree-ordered, pruned ``MAT_ORACLE_GRAPH`` equal to the host
+   oracle; for each of ``KRON_RUNS`` ``kronecker_graph`` generated,
+   ``graph_stats``, degree-ordered and pruned, TRIANGLE_COUNT in its
+   modes, equal and each through its route, with the y frontier's rows
+   measured by the engine equal to ``y_frontier_rows``: at
+   ``KRON_PAPER_SCALE`` "set" against "uint" (the frontier exceeds the
+   pipeline's buffer, checked), at ``KRON_SCALE`` "set" against "off"
+   (it fits, checked), and at ``KRON_ORACLE_SCALE`` those against the
+   host oracle; the mode is "set" again after the phase, whatever
+   happened;
 9. every kernel is run again on the largest inputs its path gave it and
    held against its plain PyTorch version — bit for bit (``materialize``
    up to its total, two launches equal, with the closing fetch of the
@@ -161,7 +185,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    row), each held and timed like the fold's, three more regimes (70,000
    anchored queries of 4 rows, the same rows with row-dependent segments,
    and the second tenant's ``4clique_at`` call) and the tests' anchored
-   batch.
+   batch; and phase 8b's largest ``uint_intersect`` call of mode "uint"
+   and ``frontier_fold`` call of mode "off", each bit-equal to its plain
+   version, two launches equal, timed beside its bound (printed lines).
 
 The last three lines of standard output are the kernel table (JSON), the
 card's ``name, power.limit`` from nvidia-smi, and the result line
@@ -273,6 +299,22 @@ SERVE_QUERIES = {
     "lollipop_at": ("C(;w:long) :- R(0,y),S(y,z),T(0,z),U(0,a); "
                     "w=<<COUNT(*)>>."),
 }
+# the preprocessing path (phase 8b): the layout modes of the engine, and
+# the Kronecker graphs (Graph500 parameters) it orders, prunes and counts,
+# each scale in the modes it is held in.  Scale 20 is the paper's Patents
+# and LiveJournal scale; its pruned y frontier exceeds the pipeline's
+# PIPELINE_MAX_BUFFER (4,194,304 rows), so the pipeline lands that
+# extension and mode "off" would count by materializing the fold on the
+# host: it is held "set" against "uint".  Scale 18 is the largest whose
+# frontier fits (from 19 on it does not): there "set" is held against
+# "off", the pair kernels against frontier_fold
+LAYOUT_MODES = ("set", "uint", "off")
+KRON_PAPER_SCALE = 20
+KRON_SCALE = 18
+KRON_ORACLE_SCALE = 16         # held against the host oracle
+KRON_RUNS = ((KRON_PAPER_SCALE, ("set", "uint")), (KRON_SCALE, ("set", "off")),
+             (KRON_ORACLE_SCALE, ("set", "off")))
+KRON_EDGE_FACTOR = 16
 SERVE_KERNELS = {
     # the reference's batched bag program vmaps the fill's and the fold's
     # plain versions
@@ -2097,6 +2139,370 @@ def serving_path(src, dst, g, torch):
     return launches, captures
 
 
+def pattern_runs(eng, q, torch, runs=("cold", "warm")):
+    """``q`` on ``eng`` once for each of ``runs`` (bag results emptied
+    before each, as in phase 2).  Returns the count, each run's wall and
+    the last run's dispatch-summary and launch deltas."""
+    from repro_torch.core.executor import BagResultCache
+    from repro_torch.kernels import common
+
+    walls = {}
+    for run in runs:
+        eng.bag_cache = BagResultCache()
+        before, launched0 = dict(eng.dispatch_summary()), dict(common.LAUNCHES)
+        t0 = time.perf_counter()
+        count = int(eng.query(q).scalar())
+        torch.cuda.synchronize()
+        walls[run] = time.perf_counter() - t0
+    after = eng.dispatch_summary()
+    delta = {k: after[k] - before.get(k, 0) for k in after
+             if after[k] != before.get(k, 0)
+             and not k.startswith("layout.threshold_bits")}
+    launched = {k: n - launched0.get(k, 0) for k, n in common.LAUNCHES.items()
+                if n != launched0.get(k, 0)}
+    return count, walls, delta, launched
+
+
+def route_counters(delta):
+    return {k: v for k, v in sorted(delta.items())
+            if k.startswith(("intersect.", "fold.", "pipeline.", "extend."))}
+
+
+def check_route(mode, delta, launched, what):
+    """The counters of one warm run show ``mode``'s route: the both-dense
+    pairs through ``bitset_intersect`` in "set"; every pair on the uint
+    route, through ``uint_intersect``, in "uint"; no pair route at all in
+    "off", the fold on the card through ``frontier_fold`` with no
+    per-extension host sync (so the pipeline, not the host chain, carried
+    it)."""
+    if mode == "set":
+        check(delta.get("intersect.bitset_kernel", 0) > 0
+              and launched.get("bitset_intersect", 0) > 0,
+              f"{what}: no pair took the bitset kernel in mode set")
+    elif mode == "uint":
+        check(delta.get("intersect.uint_kernel", 0) > 0
+              and launched.get("uint_intersect", 0) > 0,
+              f"{what}: no pair took the uint kernel in mode uint")
+        check(not any(k.startswith("intersect.bitset") for k in delta)
+              and not launched.get("bitset_intersect"),
+              f"{what}: a bitset route ran in mode uint")
+    else:
+        check("fold.pair_count_calls" not in delta
+              and not any(k.startswith("intersect.") for k in delta),
+              f"{what}: a pair route ran in mode off")
+        check(launched.get("frontier_fold", 0) > 0
+              and delta.get("pipeline.device_folds", 0) > 0
+              and delta.get("extend.host_syncs", 0) == 0,
+              f"{what}: mode off's fold did not run in the pipeline "
+              f"({json.dumps(route_counters(delta))})")
+        check(not launched.get("bitset_intersect")
+              and not launched.get("uint_intersect"),
+              f"{what}: a pair kernel launched in mode off")
+
+
+def kron_pruned(scale):
+    """``kronecker_graph(scale, KRON_EDGE_FACTOR, seed=0)`` degree-ordered
+    and pruned, with a line of its statistics and each step's time."""
+    from repro_torch.data.graphs import kronecker_graph
+    from repro_torch.graph import (apply_ordering, graph_stats, order_nodes,
+                                   prune_symmetric)
+
+    t0 = time.perf_counter()
+    kg = kronecker_graph(scale, KRON_EDGE_FACTOR, seed=0)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kstats = graph_stats(kg)
+    t_stats = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kh = apply_ordering(kg, order_nodes(kg, "degree"))
+    t_order = time.perf_counter() - t0
+    del kg
+    t0 = time.perf_counter()
+    kp = prune_symmetric(kh)
+    t_prune = time.perf_counter() - t0
+    return kp, (f"[prep] kronecker_graph({scale}, {KRON_EDGE_FACTOR}): "
+                f"{json.dumps(kstats)}; generated in {t_gen:.2f} s, "
+                f"graph_stats {t_stats:.2f} s, degree ordering {t_order:.2f} "
+                f"s, prune_symmetric {t_prune:.2f} s; {kp.m} pruned edges, "
+                f"largest pruned degree {int(kp.degrees.max())}")
+
+
+def y_frontier_rows(p):
+    """TRIANGLE_COUNT's y level on the pruned graph ``p``: the edges
+    ``(x, y)`` whose ``y`` has an out-edge (``S(y, z)`` filters the
+    extension sideways)."""
+    return int((p.degrees[p.neighbors] > 0).sum())
+
+
+def step_rows(eng, var):
+    """The rows the engine's last query measured at ``var``'s level."""
+    return next(step.get("actual_rows")
+                for bag in eng.plan_metadata()[-1]["bags"]
+                for step in bag["steps"] if step["var"] == var)
+
+
+def kron_frontiers(scales):
+    """``--kron-frontiers``: for each scale the degree-ordered, pruned
+    Kronecker graph's line and its y frontier against the pipeline's
+    buffer, on the host alone."""
+    from repro_torch.core.statistics import PIPELINE_MAX_BUFFER
+
+    for scale in scales:
+        kp, line = kron_pruned(scale)
+        log(f"{line}; y frontier {y_frontier_rows(kp)} rows, buffer "
+            f"{PIPELINE_MAX_BUFFER}")
+        del kp
+
+
+def preprocessing_path(g, tc_full, torch):
+    """Phase 8b, the preprocessing path: graph statistics, the seven node
+    orderings of Appendix C.2.1, symmetric pruning and the three layout
+    modes on the card.  ``g`` is the full-size graph and ``tc_full`` its
+    TRIANGLE_COUNT from phase 2 (held against the host oracle in phase
+    3).  Returns the phase's kernel launches, each held equal to its
+    calls with work, and the captures of the largest ``uint_intersect``
+    call of mode "uint" and ``frontier_fold`` call of mode "off"."""
+    from repro_torch.core import layouts
+    from repro_torch.core import statistics as stats_mod
+    from repro_torch.core import workload as W
+    from repro_torch.core.engine import Engine
+    from repro_torch.data.graphs import edge_list, powerlaw_graph
+    from repro_torch.graph import (ORDERINGS, apply_ordering, graph_stats,
+                                   order_nodes, prune_symmetric)
+    from repro_torch.kernels import common
+    from repro_torch.kernels.bitset_intersect import ops as bitset_ops
+    from repro_torch.kernels.frontier_fill import ops as fill_ops
+    from repro_torch.kernels.uint_intersect import ops as uint_ops
+
+    t_phase = time.perf_counter()
+
+    def in_mode(m):
+        return lambda n: n if layouts._ENGINE_LAYOUT_MODE == m else -1
+
+    # every call with work of the path's kernels, then the two regimes'
+    # largest calls (stacked on them, restored first)
+    calls = {
+        "frontier_fill": Capture(fill_ops, "fill", lambda *a: a[6]),
+        # every fold call launches, rows or not
+        "frontier_fold": Capture(fill_ops, "fold",
+                                 lambda lo0, *a: int(lo0.shape[0]) + 1),
+        "bitset_intersect": Capture(bitset_ops, "bitset_pair_count",
+                                    lambda o, i, w, a, b: int(a.shape[0])),
+        "uint_intersect": Capture(uint_ops, "intersect_count_csr",
+                                  lambda o, nb, u, v: int(u.shape[0])),
+    }
+    is_uint, is_off = in_mode("uint"), in_mode("off")
+    regimes = {
+        "uint_intersect.uint": Capture(
+            uint_ops, "intersect_count_csr",
+            lambda o, nb, u, v: is_uint(int(u.shape[0])), copy=True),
+        "frontier_fold.off": Capture(
+            fill_ops, "fold", lambda lo0, *a: is_off(int(lo0.shape[0])),
+            copy=True),
+    }
+
+    def load_pruned(p):
+        s, d = edge_list(p)
+        return load(Engine(backend="device"), s, d, W.ALIASES)
+
+    def store_stats(eng):
+        trie = eng.catalog.get("Edge")
+        return {key[2]: store.stats() for key, store in trie.device_stores()}
+
+    common.reset_launches()
+    try:
+        # ---- 1. the seven orderings of the full-size graph, pruned
+        t0 = time.perf_counter()
+        stats = graph_stats(g)
+        log(f"[prep] graph_stats of powerlaw_graph{FULL_GRAPH} "
+            f"{json.dumps(stats)} in {time.perf_counter() - t0:.3f} s")
+        check(tc_full % 6 == 0, f"TRIANGLE_COUNT {tc_full} is not 6 x the "
+                                "pruned count")
+        degree_eng = None
+        for method in ORDERINGS:
+            t0 = time.perf_counter()
+            perm = order_nodes(g, method)
+            t_order = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            h = apply_ordering(g, perm)
+            t_apply = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            p = prune_symmetric(h)
+            t_prune = time.perf_counter() - t0
+            eng = load_pruned(p)
+            count, walls, delta, launched = pattern_runs(
+                eng, W.TRIANGLE_COUNT, torch)
+            log(f"[prep] {method}: order_nodes {t_order:.3f} s, "
+                f"apply_ordering {t_apply:.3f} s, prune_symmetric "
+                f"{t_prune:.3f} s; {p.m} edges, largest pruned degree "
+                f"{int(p.degrees.max())}; TRIANGLE_COUNT {count} cold "
+                f"{walls['cold']:.3f} s warm {walls['warm']:.3f} s; store "
+                f"{json.dumps(store_stats(eng))}; warm "
+                f"{json.dumps(route_counters(delta))} launches "
+                f"{json.dumps(launched)}")
+            check(count * 6 == tc_full,
+                  f"{method}: pruned TRIANGLE_COUNT {count} x 6 != "
+                  f"{tc_full}")
+            if method == "degree":
+                degree_eng = eng
+            del eng, h, p
+
+        # ---- 2. the degree-ordered, pruned graph in each layout mode
+        counts = {}
+        for m in LAYOUT_MODES:
+            layouts.set_engine_layout_mode(m)
+            count, walls, delta, launched = pattern_runs(
+                degree_eng, W.TRIANGLE_COUNT, torch)
+            log(f"[prep] degree-ordered, mode {m}: TRIANGLE_COUNT {count} "
+                f"cold {walls['cold']:.3f} s warm {walls['warm']:.3f} s; "
+                f"warm {json.dumps(route_counters(delta))} launches "
+                f"{json.dumps(launched)}")
+            check_route(m, delta, launched, f"full-size, mode {m}")
+            counts[m] = count
+        check(len(set(counts.values())) == 1,
+              f"the layout modes disagree: {counts}")
+        layouts.set_engine_layout_mode("set")
+        count, walls, delta, launched = pattern_runs(
+            degree_eng, W.FOUR_CLIQUE, torch)
+        log(f"[prep] degree-ordered, mode set: FOUR_CLIQUE {count} cold "
+            f"{walls['cold']:.3f} s warm {walls['warm']:.3f} s; warm "
+            f"{json.dumps(route_counters(delta))} launches "
+            f"{json.dumps(launched)}")
+        del degree_eng
+
+        # the host oracle on the 50k-vertex graph, degree-ordered, pruned
+        og = powerlaw_graph(*MAT_ORACLE_GRAPH, seed=0)
+        op = prune_symmetric(apply_ordering(og, order_nodes(og, "degree")))
+        osrc, odst = edge_list(op)
+        t0 = time.perf_counter()
+        host = load(Engine(backend="numpy"), osrc, odst, W.ALIASES)
+        want = {q: int(host.query(getattr(W, q)).scalar())
+                for q in ("TRIANGLE_COUNT", "FOUR_CLIQUE")}
+        log(f"[prep] host oracle on powerlaw_graph{MAT_ORACLE_GRAPH}, "
+            f"degree-ordered, pruned ({op.m} edges): {json.dumps(want)} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del host
+        for m in LAYOUT_MODES:
+            layouts.set_engine_layout_mode(m)
+            eng = load_pruned(op)
+            for q, n in want.items():
+                got, walls, delta, launched = pattern_runs(
+                    eng, getattr(W, q), torch, ("cold",))
+                log(f"[prep] oracle graph, mode {m}: {q} {got} in "
+                    f"{walls['cold']:.3f} s")
+                check(got == n, f"{q} on the oracle graph in mode {m}: "
+                                f"{got} != host {n}")
+            del eng
+
+        # ---- 3. Kronecker graphs, degree-ordered and pruned
+        for scale, modes in KRON_RUNS:
+            layouts.set_engine_layout_mode("set")
+            kp, line = kron_pruned(scale)
+            rows = y_frontier_rows(kp)
+            log(f"{line}; y frontier {rows} rows")
+            fits = rows <= stats_mod.PIPELINE_MAX_BUFFER
+            check(fits == (scale != KRON_PAPER_SCALE),
+                  f"kronecker {scale}: a y frontier of {rows} rows "
+                  f"{'fits' if fits else 'exceeds'} the pipeline's buffer")
+            eng = load_pruned(kp)
+            # past the buffer the cold run is the only one: the host path
+            # makes it as long as a warm one
+            runs = ("cold", "warm") if fits else ("cold",)
+            kcounts = {}
+            for m in modes:
+                layouts.set_engine_layout_mode(m)
+                count, walls, delta, launched = pattern_runs(
+                    eng, W.TRIANGLE_COUNT, torch, runs)
+                log(f"[prep] kronecker {scale}, mode {m}: TRIANGLE_COUNT "
+                    f"{count} {json.dumps(walls)}; store "
+                    f"{json.dumps(store_stats(eng))}; "
+                    f"{json.dumps(route_counters(delta))} launches "
+                    f"{json.dumps(launched)}")
+                check_route(m, delta, launched, f"kronecker {scale}, mode {m}")
+                got = step_rows(eng, "y")
+                check(got == rows, f"kronecker {scale}, mode {m}: the y "
+                                   f"frontier held {got} rows, not {rows}")
+                kcounts[m] = count
+            del eng
+            check(len(set(kcounts.values())) == 1,
+                  f"kronecker {scale}: the modes disagree {kcounts}")
+            if scale == KRON_ORACLE_SCALE:
+                layouts.set_engine_layout_mode("set")
+                s, d = edge_list(kp)
+                t0 = time.perf_counter()
+                host = load(Engine(backend="numpy"), s, d, W.ALIASES)
+                n = int(host.query(W.TRIANGLE_COUNT).scalar())
+                log(f"[prep] kronecker {scale}: host oracle TRIANGLE_COUNT "
+                    f"{n} in {time.perf_counter() - t0:.1f} s")
+                check(n == kcounts["set"], f"kronecker {scale}: device "
+                      f"{kcounts['set']} != host {n}")
+                del host
+            del kp
+    finally:
+        layouts.set_engine_layout_mode("set")
+        for c in regimes.values():
+            c.restore()
+        for c in calls.values():
+            c.restore()
+    launches = dict(common.LAUNCHES)
+    log(f"[prep] launches {json.dumps(launches)}")
+    for name, cap in calls.items():
+        check(launches.get(name, 0) == cap.calls,
+              f"{name}: {launches.get(name, 0)} launches for {cap.calls} "
+              "calls with work, not one a call")
+    check(set(launches) <= set(calls), f"a kernel off the path launched: "
+                                       f"{json.dumps(launches)}")
+    for name in ("frontier_fill", "frontier_fold", "bitset_intersect",
+                 "uint_intersect"):
+        check(launches.get(name, 0) > 0, f"{name} never launched in the "
+                                         "preprocessing path")
+    for name, cap in regimes.items():
+        check(cap.args is not None, f"no call of {name}")
+    log(f"[prep] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, regimes
+
+
+def regime_calls(regimes, fill_ops, uint_ops, fold_ref, uint_ref,
+                 time_stats, torch):
+    """The preprocessing path's two new regimes on their largest calls
+    (phase 8b's captures): ``uint_intersect`` in layout mode "uint" and
+    ``frontier_fold`` in mode "off", each held against its plain version
+    bit for bit, two launches equal, timed (CUDA events, L2 flushed, the
+    card held, median of 20) beside its bound, with the call's shape:
+    printed lines, not table rows."""
+    args = regimes["uint_intersect.uint"].args
+    got = uint_ops.intersect_count_csr(*args)
+    check(torch.equal(got, uint_ref(*args)),
+          "uint_intersect, mode uint: differs from its plain version")
+    check(torch.equal(got, uint_ops.intersect_count_csr(*args)),
+          "uint_intersect, mode uint: two launches differ")
+    ms, lo, hi = time_stats(lambda: uint_ops.intersect_count_csr(*args), 20)
+    shape, moved, ops = uint_work(args, torch)
+    b_bytes, b_ops = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    log(f"[kernel] uint_intersect, mode uint's largest call: {shape}; "
+        f"bit-equal, two launches equal; kernel {ms:.4f} ms (min {lo:.4f}, "
+        f"max {hi:.4f}), bound {max(b_bytes, b_ops):.4f} ms (bytes "
+        f"{b_bytes:.4f} ms, {moved} bytes; operations {b_ops:.4f} ms)")
+    args = regimes["frontier_fold.off"].args
+    sr = args[6]
+    got = fill_ops.fold(*args)
+    check(fold_equal(got, fold_ref(*args), sr, torch),
+          "frontier_fold, mode off: differs from its plain version")
+    check(all(torch.equal(x, y) for x, y in zip(got, fill_ops.fold(*args))),
+          "frontier_fold, mode off: two launches differ")
+    ms, lo, hi = time_stats(lambda: fill_ops.fold(*args), 20)
+    cands, moved, ops = fold_work(args, torch)
+    b_bytes, b_ops = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    log(f"[kernel] frontier_fold, mode off's largest call: rows="
+        f"{int(args[0].shape[0])} live_rows="
+        f"{int((fold_counts(args, torch) > 0).sum())} candidates={cands} "
+        f"n0={int(args[3].shape[0])} probes={len(args[4])} "
+        f"semiring={sr.name}; bit-equal, two launches equal; kernel "
+        f"{ms:.4f} ms (min {lo:.4f}, max {hi:.4f}), bound "
+        f"{max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f} ms, {moved} "
+        f"bytes; operations {b_ops:.4f} ms)")
+
+
 def kernel_timer(torch):
     """``time_stats(fn, reps, hold=True)``: the median, min and max over
     ``reps`` launches of ``fn`` (a 256 MB buffer zeroed before each to
@@ -2226,6 +2632,7 @@ def main():
     ap.add_argument("--fold-profile", action="store_true")
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--src", default=str(SRC))
+    ap.add_argument("--kron-frontiers", type=int, nargs="+", metavar="SCALE")
     opts = ap.parse_args()
     src_dir = Path(opts.src).resolve()
     if not (src_dir / "repro_torch").is_dir():
@@ -2235,6 +2642,9 @@ def main():
     import numpy as np
     import torch
 
+    if opts.kron_frontiers:
+        kron_frontiers(opts.kron_frontiers)
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card",
              3)
@@ -2434,9 +2844,12 @@ def main():
         check(serve_launches[name] == captures[name].calls,
               f"{name}: {serve_launches[name]} launches for "
               f"{captures[name].calls} calls with work, not one a call")
+    # ------------------------------------------ 8b. preprocessing path
+    prep_launches, prep_captures = preprocessing_path(
+        g, results["TRIANGLE_COUNT"], torch)
     path_launches = collections.Counter()
     for counts in (launches, rec_launches, mat_launches, tri_launches,
-                   fm_launches, serve_launches):
+                   fm_launches, serve_launches, prep_launches):
         path_launches.update(counts)
 
     # ---------------------------------- 9. kernels against plain versions
@@ -2712,6 +3125,10 @@ def main():
             f"{plain_ms:.4f} ms, bound {max(b_bytes, b_ops) * 1e3:.2f} us "
             f"(by {rows[-1]['bound_by']}; {moved} bytes {b_bytes * 1e3:.2f} "
             f"us, operations {b_ops * 1e3:.2f} us)")
+
+    regime_calls(prep_captures, fill_ops, uint_ops, fold_ref,
+                 intersect_count_csr_ref, time_stats, torch)
+    del prep_captures
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

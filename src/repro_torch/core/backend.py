@@ -76,7 +76,9 @@ class ExecBackend:
     positions into that atom's current trie level.
 
     ``pair_count(trie, u, v)`` is the binary terminal-fold fast path:
-    layout-routed ``|N(u_i) ∩ N(v_i)|`` counts.
+    layout-routed ``|N(u_i) ∩ N(v_i)|`` counts, or ``None`` when the
+    store is bypassed (layout mode "off"). ``has_pair_store(trie)`` lets
+    the caller skip the frontier gathers entirely in the bypassed case.
     """
 
     name = "abstract"
@@ -119,6 +121,8 @@ class ExecBackend:
         statistics-driven Algorithm-3 density threshold (None lets the
         layout store profile the trie itself)."""
         store = self._pair_store(trie, threshold)
+        if store is None:
+            return None
         self.stats["fold.pair_count_calls"] += 1
         return store.intersect_count(u, v)
 
@@ -126,8 +130,11 @@ class ExecBackend:
                          threshold: Optional[float] = None):
         """Binary MATERIALIZING extension fast path (the plan IR's
         ``Extend.routing == "pair_store"``): cohort-routed
-        ``N(u_i) ∩ N(v_i)`` with positions for trie descent."""
+        ``N(u_i) ∩ N(v_i)`` with positions for trie descent, or ``None``
+        when the layout store is bypassed (layout mode "off")."""
         store = self._pair_store(trie, threshold)
+        if store is None:
+            return None
         self.stats["extend.pair_materialize_calls"] += 1
         return store.intersect_materialize(u, v)
 

@@ -161,6 +161,13 @@ class BlockedBitset:
     card: np.ndarray        # [B] int64 cardinality of each block
     slot_of: np.ndarray     # [n_ids] int32 -> slot in set_ids, or -1
 
+    def nbytes(self) -> int:
+        """Bytes of the paper's layout (the reference's count): block ids,
+        words, index, the block CSR and the set ids; not ``card`` or
+        ``slot_of``, which only route."""
+        return (self.block_ids.nbytes + self.words.nbytes + self.index.nbytes
+                + self.offsets.nbytes + self.set_ids.nbytes)
+
 
 def build_blocked_bitset(offsets: np.ndarray, neighbors: np.ndarray,
                          ids: np.ndarray, n_total: int,

@@ -73,7 +73,32 @@ def decide_set_level(csr: CSRGraph, threshold: float = SIMD_REGISTER_BITS) -> La
     )
 
 
+def decide_relation_level(csr: CSRGraph, force: str = "uint") -> LayoutDecision:
+    """Relation-level granularity: one layout for every set (Table 4 row
+    1): all uint with ``force="uint"``, else all bitset."""
+    nz = csr.degrees > 0
+    ids = np.flatnonzero(nz).astype(np.int64)
+    empty = np.zeros(0, dtype=np.int64)
+    if force == "uint":
+        return LayoutDecision(empty, ids, np.full(csr.n, np.inf), 0.0)
+    return LayoutDecision(ids, empty, np.zeros(csr.n), np.inf)
+
+
 # ----------------------------------------------------------- engine routing
+# Layout mode of the engine's terminal intersections, as in the reference:
+#   "set"  — Algorithm-3 set-level decisions (paper default)
+#   "uint" — relation-level all-uint (the "-R" ablation of Table 8)
+#   "off"  — bypass the store (the plain search path)
+_ENGINE_LAYOUT_MODE = "set"
+
+
+def set_engine_layout_mode(mode: str):
+    global _ENGINE_LAYOUT_MODE
+    if mode not in ("set", "uint", "off"):
+        raise ValueError(f"layout mode {mode!r}: not 'set', 'uint' or 'off'")
+    _ENGINE_LAYOUT_MODE = mode
+
+
 def engine_store_for(trie, *, device: torch.device,
                      pair_kernel: Optional[Callable] = None,
                      uint_kernel: Optional[Callable] = None,
@@ -82,41 +107,52 @@ def engine_store_for(trie, *, device: torch.device,
                      counter=None,
                      cache_tag: str = "host",
                      threshold: Optional[float] = None,
-                     ) -> "HybridSetStore":
+                     ) -> Optional["HybridSetStore"]:
     """Per-trie cached HybridSetStore for the engine's binary terminal
     folds (built lazily on first use; index build time is excluded from
-    query timing, as in the paper).
+    query timing, as in the paper), or None in layout mode "off".
 
     ``threshold`` is the Algorithm-3 density threshold the plan IR
     passes from its TerminalFold annotation; when None, the same
     statistics profile is computed here
-    (``statistics.layout_threshold_for``).  The threshold used is
-    recorded in the dispatch counters (``layout.threshold_bits`` /
-    ``layout.stats_driven``).
+    (``statistics.layout_threshold_for``).  In mode "set" the threshold
+    used is recorded in the dispatch counters (``layout.threshold_bits``
+    / ``layout.stats_driven``); mode "uint" builds every set as uint and
+    profiles nothing.
 
-    Stores are cached per (cache_tag, threshold) so the host and device
-    backends — which inject different intersection kernels and keep
-    their arrays on different devices — each keep their own index on the
-    same trie.  ``counter`` is rebound on every call so dispatch
+    Stores are cached per (cache_tag, threshold, layout mode) so the host
+    and device backends — which inject different intersection kernels and
+    keep their arrays on different devices — each keep their own index on
+    the same trie.  ``counter`` is rebound on every call so dispatch
     instrumentation always lands on the calling backend.
     """
-    if threshold is None:
-        threshold = statistics.layout_threshold_for(trie)
-    thr_key = int(round(threshold))
+    mode = _ENGINE_LAYOUT_MODE
+    if mode == "off":
+        return None
+    if mode == "uint":
+        thr_key = "uint"
+    else:
+        if threshold is None:
+            threshold = statistics.layout_threshold_for(trie)
+        thr_key = int(round(threshold))
     cache = getattr(trie, "_hybrid_stores", None)
     if cache is None:
         cache = trie._hybrid_stores = {}
-    key = (cache_tag, thr_key)
+    key = (cache_tag, thr_key, mode)
     store = cache.get(key)
     if store is None:
         csr = CSRGraph.from_trie(trie)
-        store = HybridSetStore.build(csr, device, threshold=threshold,
+        decision = (decide_relation_level(csr, "uint") if mode == "uint"
+                    else None)
+        store = HybridSetStore.build(csr, device,
+                                     threshold=threshold or SIMD_REGISTER_BITS,
+                                     decision=decision,
                                      pair_kernel=pair_kernel,
                                      uint_kernel=uint_kernel,
                                      materialize_kernel=materialize_kernel,
                                      uint_max_len=uint_max_len)
         cache[key] = store
-    if counter is not None:
+    if counter is not None and mode == "set":
         counter["layout.stats_driven"] += 1
         counter["layout.threshold_bits"] = thr_key
     store.counter = counter
@@ -161,14 +197,30 @@ class HybridSetStore:
               pair_kernel: Optional[Callable] = None,
               uint_kernel: Optional[Callable] = None,
               materialize_kernel: Optional[Callable] = None,
-              uint_max_len: int = 256) -> "HybridSetStore":
-        d = decide_set_level(csr, threshold)
+              uint_max_len: int = 256,
+              decision: Optional[LayoutDecision] = None) -> "HybridSetStore":
+        d = decision if decision is not None else decide_set_level(csr,
+                                                                   threshold)
         bs = None
         if len(d.dense_ids):
             bs = I.build_blocked_bitset(csr.offsets, csr.neighbors,
                                         d.dense_ids, csr.n, block_bits)
         return HybridSetStore(csr, d, bs, torch.device(device), pair_kernel,
                               uint_kernel, materialize_kernel, uint_max_len)
+
+    def stats(self) -> dict:
+        """The layout optimizer's outcome: sets a cohort, the dense share,
+        and the host bytes of the bitset and the CSR."""
+        d = self.decision
+        n_dense, n_sparse = len(d.dense_ids), len(d.sparse_ids)
+        return {
+            "n_dense": int(n_dense),
+            "n_sparse": int(n_sparse),
+            "frac_dense": float(n_dense) / max(1, n_dense + n_sparse),
+            "bitset_bytes": int(self.bitset.nbytes()) if self.bitset else 0,
+            "csr_bytes": int(self.csr.neighbors.nbytes
+                             + self.csr.offsets.nbytes),
+        }
 
     def _up(self, x: np.ndarray) -> torch.Tensor:
         """Upload of a host index array as int32."""

@@ -1,9 +1,11 @@
 """Synthetic graph generators (counterpart of ``repro.data.graphs``).
 
 The paper's datasets (LiveJournal, Twitter, ...) are not available offline;
-the engine runs on synthetic power-law graphs matched to the paper's
-density-skew regimes (App. C.2.1's Snap generator study).  The generator
-draws from numpy with a seed, so both packages build identical graphs.
+the engine runs on synthetic graphs matched to the paper's density-skew
+regimes: power-law (App. C.2.1's Snap generator study) and Kronecker
+(RMAT, Graph500 parameters; models real social-graph structure).  The
+generators draw from numpy with a seed, so both packages build identical
+graphs.
 """
 from __future__ import annotations
 
@@ -25,6 +27,29 @@ def powerlaw_graph(n: int, mean_deg: float = 8.0, exponent: float = 2.0,
     m = int(mean_deg * n / 2)
     src = rng.choice(n, size=m, p=p)
     dst = rng.choice(n, size=m, p=p)
+    return symmetrize(src, dst, n=n)
+
+
+def kronecker_graph(scale: int, edge_factor: int = 16,
+                    a: float = 0.57, b: float = 0.19, c: float = 0.19,
+                    seed: int = 0) -> CSRGraph:
+    """RMAT/Kronecker generator (Graph500 parameters by default):
+    ``2**scale`` vertices, ``edge_factor * 2**scale`` drawn edges, each
+    placed one bit a level by the quadrant probabilities ``(a | b / c |
+    d)``, then symmetrized (deduped, no self-loops)."""
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    m = edge_factor * n
+    src = np.zeros(m, dtype=np.int64)
+    dst = np.zeros(m, dtype=np.int64)
+    for lvl in range(scale):
+        go_right = rng.random(m) > (a + c)          # dst high bit
+        r2 = rng.random(m)
+        # P(src high bit | the dst side drawn)
+        go_down = np.where(go_right, r2 < c / (b + (1 - a - b - c) + 1e-12),
+                           r2 < c / (a + c + 1e-12))
+        src |= go_down.astype(np.int64) << lvl
+        dst |= go_right.astype(np.int64) << lvl
     return symmetrize(src, dst, n=n)
 
 

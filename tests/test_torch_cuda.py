@@ -12,7 +12,8 @@ to the same code on the CPU (and the engine to the host oracle).  The
 batched fill and fold equal their plain versions and the single-query
 kernels, with more queries than ``gridDim.y`` holds and a batch whose
 candidates pass 2^31, and the batched serving path on the card equals
-its run on the CPU.  Marked
+its run on the CPU.  The three layout modes ("set", "uint", "off") agree
+on the card, each through its own kernel.  Marked
 ``cuda``; every test skips without a card.  Run on a machine with one:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -1188,6 +1189,53 @@ def test_batched_serving_path_on_card_matches_cpu(dev):
                                       np.asarray(y.annotation))
     assert cl["frontier_fill_batched"] == cd["extend.pipeline_extends"]
     assert cl["frontier_fold_batched"] == cd["pipeline.device_folds"]
+
+
+def test_layout_modes_agree_on_card(dev):
+    """TRIANGLE_COUNT and FOUR_CLIQUE on a degree-ordered, pruned
+    power-law graph in layout modes "set", "uint" and "off": the three
+    counts on the card agree, each equals the same code on the CPU
+    (dispatch summary too), and each mode launches its route's kernel:
+    ``bitset_intersect`` in "set", ``uint_intersect`` in "uint", only
+    ``frontier_fold`` in "off"."""
+    from repro_torch.core import layouts
+    from repro_torch.graph import apply_ordering, order_nodes, prune_symmetric
+
+    g = powerlaw_graph(2000, 12, 2.0, seed=0)
+    src, dst = edge_list(prune_symmetric(apply_ordering(
+        g, order_nodes(g, "degree"))))
+    counts = {}
+    try:
+        for mode in ("set", "uint", "off"):
+            layouts.set_engine_layout_mode(mode)
+            for qname in ("TRIANGLE_COUNT", "FOUR_CLIQUE"):
+                out = []
+                for device in ("cuda", "cpu"):
+                    eng = Engine(backend="device", device=device)
+                    eng.load_edges("Edge", src, dst)
+                    for a in W.ALIASES:
+                        eng.alias(a, "Edge")
+                    before = dict(common.LAUNCHES)
+                    n = int(eng.query(getattr(W, qname)).scalar())
+                    launched = {k: common.LAUNCHES[k] - before.get(k, 0)
+                                for k in common.LAUNCHES}
+                    out.append((n, eng.dispatch_summary(), launched))
+                (n, d, launched), (host_n, host_d, _) = out
+                assert n == host_n and d == host_d, (mode, qname)
+                counts[mode, qname] = n
+                if qname == "TRIANGLE_COUNT":
+                    route = {"set": "bitset_intersect",
+                             "uint": "uint_intersect",
+                             "off": "frontier_fold"}[mode]
+                    assert launched.get(route, 0) > 0, (mode, launched)
+                if mode == "off":
+                    assert launched.get("bitset_intersect", 0) == 0
+                    assert launched.get("uint_intersect", 0) == 0
+    finally:
+        layouts.set_engine_layout_mode("set")
+    for qname in ("TRIANGLE_COUNT", "FOUR_CLIQUE"):
+        assert counts["set", qname] == counts["uint", qname] \
+            == counts["off", qname] > 0, counts
 
 
 def test_cuda_tensor_never_takes_the_plain_version(dev):

@@ -2,8 +2,10 @@
 (with plan verification and the dispatch sanitizer), a materializing
 query, ``explain``, ``triangle_count_dense``, ``recursion.pagerank`` and
 the FM serving path (``forward``, ``batched_scores``,
-``retrieval_scores``) and the relational serving path (``QueryServer``
-batches, the memory model) pulls in neither jax nor the ``repro`` package
+``retrieval_scores``), the relational serving path (``QueryServer``
+batches, the memory model) and the preprocessing path (Kronecker graph,
+statistics, ordering, pruning, dictionary encoding, a query in layout
+mode "uint") pulls in neither jax nor the ``repro`` package
 (checked in a fresh interpreter), the generated program imports
 ``repro_torch.core``, no module of the port (nor ``chip_smoke.py``) has an
 import of either, and every entry point runs on the card — and refuses to
@@ -80,6 +82,25 @@ srv.run("b", q, 1)
 assert srv.dispatch_summary()["pipeline.batched_launches"] >= 1
 assert srv.counters["store.evictions"] == 1, srv.counters
 check_store(srv)
+from repro_torch.core import layouts
+from repro_torch.data import kronecker_graph
+from repro_torch.graph import (apply_ordering, encode_edges, graph_stats,
+                               order_nodes)
+g0 = powerlaw_graph(200, 6, 2.0, seed=1)
+ordered = prune_symmetric(apply_ordering(g0, order_nodes(g0, "hybrid")))
+assert graph_stats(kronecker_graph(8, 8, seed=0))["edges"] > 0
+enc_src, enc_dst, dictionary = encode_edges(*edge_list(ordered))
+layouts.set_engine_layout_mode("uint")
+try:
+    ueng = Engine(backend="device", device="cpu")
+    ueng.load_edges("Edge", enc_src, enc_dst)
+    for a in W.ALIASES:
+        ueng.alias(a, "Edge")
+    pruned_count = int(ueng.query(W.TRIANGLE_COUNT).scalar())
+finally:
+    layouts.set_engine_layout_mode("set")
+assert pruned_count * 6 == count, (pruned_count, count)
+assert ueng.dispatch_summary()["intersect.uint_kernel"] > 0
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"count": count, "rows": rows, "leaked": leaked,
@@ -117,7 +138,8 @@ def test_no_port_module_imports_jax_or_repro():
         "kernels/materialize/ops", "kernels/triangle_mm/ops",
         "kernels/fm_interaction/ops", "models/recsys/fm", "data/recsys",
         "serve/engine", "configs/fm", "serve/query",
-        "analysis/memory_budget", "analysis/concurrency_lint")} <= names
+        "analysis/memory_budget", "analysis/concurrency_lint",
+        "graph/ordering", "graph/dictionary", "graph/stats")} <= names
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):
